@@ -24,6 +24,7 @@ setup(
     include_package_data=True,
     package_data={
         "whisper_at_tpu": ["assets/*", "normalizers/english.json"],
+        "whisper_at_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
     },
     install_requires=[
         "jax",

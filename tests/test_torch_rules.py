@@ -1,0 +1,151 @@
+"""The port's own rules: it loads no JAX, its entry points default to the
+card, unported options refuse loudly, and its standard-library tokenizer
+matches the JAX package's `regex`-based one."""
+
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import regex
+import torch
+
+import whisper_at_tpu_torch as wat
+from whisper_at_tpu.tokenizer import get_tokenizer as jax_get_tokenizer
+from whisper_at_tpu.utils import compression_ratio as jax_compression_ratio
+from whisper_at_tpu.utils import format_timestamp as jax_format_timestamp
+from whisper_at_tpu_torch import utils
+from whisper_at_tpu_torch.bpe import pretokenize
+from whisper_at_tpu_torch.tokenizer import get_tokenizer
+
+pytestmark = pytest.mark.quick
+
+GPT2_PATTERN = regex.compile(
+    r"""'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+| ?[^\s\p{L}\p{N}]+|\s+(?!\S)|\s+""")
+
+SAMPLES = [
+    "Hello, world! It's a test; we'll see.",                 # ASCII + contractions
+    "Café déjà vu, naïve façade — Ærø, São Paulo",            # accented Latin
+    "我们今天去公园。東京は晴れです。서울 날씨",                # CJK, Hangul
+    "In 1999 there were 3,141 cases (42%) and ½ of ٣٤",       # digits, other numerals
+    "?!... -- ((x)) [[y]] {z} ♪♪ \"quoted\" 'single'",        # punctuation runs
+    "  leading\n\n\ttabs   and    spaces  \n trailing  ",     # whitespace runs
+    "mixed\xa0nbsp\u3000ideographic\u2009thin\u2028line",        # Unicode spaces
+    "'S 'LL don't I'm they've 're",                           # case-sensitive contractions
+]
+
+
+def test_import_loads_no_jax():
+    code = ("import sys, whisper_at_tpu_torch, whisper_at_tpu_torch.transcribe, "
+            "whisper_at_tpu_torch.convert, whisper_at_tpu_torch.ops; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
+            "'whisper_at_tpu')]; print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        wat.build_model("tiny")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        wat.log_mel_spectrogram(np.zeros(1600, np.float32))
+    model = wat.build_model("tiny", device="cpu")
+    path = tmp_path / "tiny.pt"
+    torch.save({"dims": vars(model.dims), "model_state_dict": model.state_dict()}, path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        wat.load_model(str(path))
+    assert model.device.type == "cpu"
+
+
+def test_load_model_reads_a_local_reference_checkpoint(tmp_path):
+    """The reference file layout ({"dims", "model_state_dict"}) plus a
+    separate head file with `module.*` keys loads on the CPU."""
+    src = wat.build_model("tiny", device="cpu", seed=1)
+    sd = src.state_dict()
+    whisper_part = {k: v for k, v in sd.items() if not k.startswith("at_model.")}
+    head_part = {"module." + k[len("at_model."):]: v for k, v in sd.items()
+                 if k.startswith("at_model.")}
+    torch.save({"dims": vars(src.dims), "model_state_dict": whisper_part}, tmp_path / "w.pt")
+    torch.save(head_part, tmp_path / "head.pth")
+    model = wat.load_model(str(tmp_path / "w.pt"), device="cpu", dtype=torch.float32,
+                           at_checkpoint=str(tmp_path / "head.pth"))
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, sd[k]), k
+    with pytest.raises(FileNotFoundError):
+        wat.load_model(str(tmp_path / "missing.pt"), device="cpu")
+
+
+@pytest.mark.parametrize("kwargs, what", [
+    (dict(beam_size=5), "beam"),
+    (dict(temperature=(0.5,), best_of=3), "best_of"),
+    (dict(kv_bits=4, kv_quant=True), "8-bit"),
+    (dict(weight_bits=4, weight_quant=True), "8-bit"),
+    (dict(word_timestamps=True), "word"),
+    (dict(mesh=object()), "mesh"),
+])
+def test_unported_options_raise(kwargs, what):
+    model = wat.build_model("tiny", device="cpu")
+    audio = np.zeros(16000 * 2, np.int16)
+    kwargs = {"temperature": 0.0, **kwargs}
+    with pytest.raises(NotImplementedError, match=what):
+        wat.transcribe_batched(model, audio, language="en", fp16=False, **kwargs)
+
+
+def test_unported_entry_points_raise():
+    from whisper_at_tpu_torch.transcribe import transcribe, transcribe_many
+
+    for fn in (transcribe, transcribe_many):
+        with pytest.raises(NotImplementedError):
+            fn(None, None)
+
+
+@pytest.mark.parametrize("text", SAMPLES)
+def test_pretokenizer_matches_regex(text):
+    assert list(pretokenize(text)) == GPT2_PATTERN.findall(text)
+
+
+def test_pretokenizer_fuzz_matches_regex():
+    rng = np.random.default_rng(0)
+    alphabet = list("ab Z9 '\n\t.,!?-") + ["'s", "'ll", "é", "中文", "٣", "½", "　", "\xa0",
+                                           "  ", "'S", "€", "🙂", "x́"]
+    for _ in range(2000):
+        text = "".join(rng.choice(alphabet) for _ in range(rng.integers(0, 14)))
+        assert list(pretokenize(text)) == GPT2_PATTERN.findall(text), repr(text)
+
+
+@pytest.mark.parametrize("multilingual", [True, False])
+def test_tokenizer_matches_jax(multilingual):
+    ours = get_tokenizer(multilingual, language="en", task="transcribe")
+    ref = jax_get_tokenizer(multilingual, language="en", task="transcribe")
+    for text in SAMPLES:
+        ids = ours.encode(text)
+        assert ids == ref.encode(text), text
+        assert ours.decode(ids) == ref.decode(ids) == text
+    assert ours.sot_sequence == ref.sot_sequence
+    assert ours.non_speech_tokens == ref.non_speech_tokens
+    assert ours.special_tokens == ref.special_tokens
+    for name in ("eot", "sot", "sot_prev", "sot_lm", "no_speech", "no_timestamps",
+                 "timestamp_begin", "transcribe", "translate"):
+        assert getattr(ours, name) == getattr(ref, name), name
+    if multilingual:
+        assert ours.language_token == ref.language_token
+        assert set(ours.all_language_tokens) == set(ref.all_language_tokens)
+        tok = get_tokenizer(True, language="German", task="translate")
+        assert tok.sot_sequence == jax_get_tokenizer(True, language="german",
+                                                     task="translate").sot_sequence
+    special = "<|startoftranscript|>hi<|0.00|> there<|endoftext|>"
+    assert ours.encode(special, allowed_special="all") == ref.encode(
+        special, allowed_special="all")
+
+
+def test_utils_match_jax():
+    for s in (0.0, 1.234, 59.9996, 3723.5):
+        assert utils.format_timestamp(s) == jax_format_timestamp(s)
+        assert utils.format_timestamp(s, True, ",") == jax_format_timestamp(s, True, ",")
+    text = "the cat sat on the mat " * 20
+    assert utils.compression_ratio(text) == jax_compression_ratio(text)
+    assert utils.exact_div(3000, 1500) == 2
+    with pytest.raises(ValueError):
+        utils.exact_div(3001, 1500)

@@ -1,0 +1,154 @@
+"""Where the time goes in the port's headline workload, on the card.
+
+    python3 tools/profile_torch_headline.py [--out build/profile_torch_headline.json]
+
+Builds large-v1 (bf16, random weights from a seeded generator) and runs
+`transcribe_batched` over chip_smoke.py's synthesized audio with
+chip_smoke.py's headline options (`HEADLINE_OPTS`, `synth_audio`):
+
+1. one warm-up call, then two plain calls, each timed on the host clock
+   between two `torch.cuda.synchronize()`;
+2. one call with its stages timed. The functions that `transcribe_batched`
+   reaches for each stage (log-mel, `Whisper.embed_audio` with K1 and K2,
+   `precompute_cross_kv` with K3, `greedy_sample_loop` with K4,
+   `Whisper.at_forward`) are wrapped so that each call synchronizes before
+   and after and adds its wall time to its stage; the call itself is the
+   real path. The call's time minus the stages is host work;
+3. one call under `torch.profiler`: the device's busy time (the union of
+   kernel intervals) and its idle share of that same profiled call, and
+   the kernels that take the most device time.
+
+Prints one JSON object (also written to --out). Needs one NVIDIA GPU.
+"""
+
+import argparse
+import functools
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from chip_smoke import BATCH, HEADLINE_OPTS, SEED, SIZE, synth_audio  # noqa: E402
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def busy_seconds(intervals) -> float:
+    """Length of the union of [start, end) intervals (microseconds in, s out)."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total * 1e-6
+
+
+def stage_times(call) -> dict:
+    """Run call() once with the path's stage functions wrapped by timers."""
+    from whisper_at_tpu_torch import decoding, transcribe
+    from whisper_at_tpu_torch.models.whisper import Whisper
+
+    stages = {"mel_s": 0.0, "encoder_s": 0.0, "cross_kv_s": 0.0, "decode_s": 0.0,
+              "tags_s": 0.0}
+    steps = []
+    hooks = [(transcribe, "log_mel_spectrogram", "mel_s"),
+             (Whisper, "embed_audio", "encoder_s"),
+             (decoding, "precompute_cross_kv", "cross_kv_s"),
+             (decoding, "greedy_sample_loop", "decode_s"),
+             (Whisper, "at_forward", "tags_s")]
+
+    def wrap(fn, key):
+        @functools.wraps(fn)
+        def timed_stage(*args, **kwargs):
+            out, seconds = timed(lambda: fn(*args, **kwargs))
+            stages[key] += seconds
+            if key == "decode_s":
+                steps.append(out[3])
+            return out
+        return timed_stage
+
+    originals = [(owner, name, getattr(owner, name)) for owner, name, _ in hooks]
+    for (owner, name, key), (_, _, fn) in zip(hooks, originals):
+        setattr(owner, name, wrap(fn, key))
+    try:
+        _, call_s = timed(call)
+    finally:
+        for owner, name, fn in originals:
+            setattr(owner, name, fn)
+    stages["decode_steps"] = sum(steps)
+    stages["decode_ms_per_step"] = stages["decode_s"] / max(sum(steps), 1) * 1e3
+    stages["rest_s"] = call_s - sum(stages[k] for k in
+                                    ("mel_s", "encoder_s", "cross_kv_s", "decode_s", "tags_s"))
+    stages["call_s"] = call_s
+    return stages
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--out", default="build/profile_torch_headline.json")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 2
+    import whisper_at_tpu_torch as wat
+    from whisper_at_tpu_torch.ops import cuda
+
+    cuda.build_all()
+    model = wat.build_model(SIZE, device="cuda", dtype=torch.bfloat16, seed=SEED)
+    audio = synth_audio(BATCH * 30, SEED)
+
+    def call():
+        return wat.transcribe_batched(model, audio, **HEADLINE_OPTS)
+
+    _, warm_s = timed(call)
+    call_s = [timed(call)[1] for _ in range(2)]
+    stages = stage_times(call)
+    print(json.dumps({"call_s": call_s, "stages": stages}), flush=True)
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, prof_s = timed(call)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = busy_seconds([(e.time_range.start, e.time_range.end) for e in kernels])
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    power = subprocess.run(["nvidia-smi", "--query-gpu=power.limit", "--format=csv,noheader"],
+                           capture_output=True, text=True, timeout=60).stdout.strip()
+    audio_s = len(audio) / 16000
+    report = {
+        "card": torch.cuda.get_device_name(0), "power_limit": power, "audio_s": audio_s,
+        "first_call_s": warm_s, "call_s": call_s,
+        "audio_s_per_s": [audio_s / s for s in call_s], "stages": stages,
+        "profiled_call_s": prof_s, "device_busy_s": busy,
+        "device_idle_share_of_profiled_call": 1 - busy / prof_s,
+        "n_kernel_launches": len(kernels),
+        "top_kernels_ms": [[name[:90], us * 1e-3] for name, us in top],
+    }
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(report, f, indent=1)
+    print(json.dumps(report))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

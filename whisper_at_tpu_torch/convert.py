@@ -1,0 +1,83 @@
+"""Weights bridge: the JAX package's parameter tree -> this port's state dict.
+
+`from_jax_params(tree)` takes the tree as nested dicts of arrays (anything
+`numpy.asarray` accepts) with the JAX layouts:
+
+* linear `{"w": [in, out], "b": [out]}`        -> `weight [out, in]`, `bias`
+* conv   `{"w": [3, in, out], "b": [out]}`     -> `weight [out, in, 3]`, `bias`
+* layer norm `{"scale", "bias"}`               -> `weight`, `bias`
+* `blocks`: every leaf stacked on a leading layer axis -> `blocks.{i}.*`
+
+and returns `{name: torch.Tensor}` for `Whisper.load_state_dict`. Only the
+tests produce such a tree with JAX; this module imports numpy and torch.
+"""
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+
+def _np(x) -> np.ndarray:
+    arr = np.asarray(x)
+    if arr.dtype.name == "bfloat16":  # numpy has no bf16 that torch reads
+        arr = arr.astype(np.float32)
+    return arr
+
+
+def _linear(out: dict, prefix: str, p: dict, layer=None) -> None:
+    pick = (lambda a: _np(a)) if layer is None else (lambda a: _np(a)[layer])
+    out[f"{prefix}.weight"] = pick(p["w"]).T
+    if "b" in p:
+        out[f"{prefix}.bias"] = pick(p["b"])
+
+
+def _ln(out: dict, prefix: str, p: dict, layer=None) -> None:
+    pick = (lambda a: _np(a)) if layer is None else (lambda a: _np(a)[layer])
+    out[f"{prefix}.weight"] = pick(p["scale"])
+    out[f"{prefix}.bias"] = pick(p["bias"])
+
+
+def _block(out: dict, prefix: str, p: dict, layer=None) -> None:
+    for attn in ("attn", "cross_attn"):
+        if attn not in p:
+            continue
+        for proj in ("query", "key", "value", "out"):
+            _linear(out, f"{prefix}.{attn}.{proj}", p[attn][proj], layer)
+        _ln(out, f"{prefix}.{attn}_ln", p[f"{attn}_ln"], layer)
+    _linear(out, f"{prefix}.mlp.0", p["mlp"]["fc1"], layer)
+    _linear(out, f"{prefix}.mlp.2", p["mlp"]["fc2"], layer)
+    _ln(out, f"{prefix}.mlp_ln", p["mlp_ln"], layer)
+
+
+def _stack(out: dict, prefix: str, blocks: dict) -> None:
+    n_layer = _np(blocks["attn"]["query"]["w"]).shape[0]
+    for i in range(n_layer):
+        _block(out, f"{prefix}.{i}", blocks, layer=i)
+
+
+def from_jax_params(tree: dict) -> Dict[str, torch.Tensor]:
+    """State dict of `models.whisper.Whisper` from the JAX parameter tree
+    {"encoder", "decoder", "at_model"}."""
+    out = {}
+    enc, dec, head = tree["encoder"], tree["decoder"], tree["at_model"]
+    for conv in ("conv1", "conv2"):
+        out[f"encoder.{conv}.weight"] = _np(enc[conv]["w"]).transpose(2, 1, 0)
+        out[f"encoder.{conv}.bias"] = _np(enc[conv]["b"])
+    out["encoder.positional_embedding"] = _np(enc["positional_embedding"])
+    _stack(out, "encoder.blocks", enc["blocks"])
+    _ln(out, "encoder.ln_post", enc["ln_post"])
+
+    out["decoder.token_embedding.weight"] = _np(dec["token_embedding"])
+    out["decoder.positional_embedding"] = _np(dec["positional_embedding"])
+    _stack(out, "decoder.blocks", dec["blocks"])
+    _ln(out, "decoder.ln", dec["ln"])
+
+    _block(out, "at_model.time_tr", head["time_tr"])
+    _block(out, "at_model.layer_tr", head["layer_tr"])
+    _ln(out, "at_model.mlp_layer.0", head["mlp_ln"])
+    _linear(out, "at_model.mlp_layer.1", head["mlp"])
+    if "down" in head:
+        _ln(out, "at_model.down_layer.0", head["down_ln"])
+        _linear(out, "at_model.down_layer.1", head["down"])
+    return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}

@@ -1,0 +1,295 @@
+"""Text decoder with a preallocated self-attention cache.
+
+Counterpart of `whisper_at_tpu/models/decoder.py`. The cache is written in
+place at `write_pos` (the JAX package threads it functionally). Prompts are
+right-aligned into a fixed prefill bucket: slots [0, pad) are masked out and
+the position embedding is indexed by slot - pad.
+
+On the decode path the cross-attention K/V of every layer is precomputed
+once per batch, int8-quantized by K3 (`ops/kv_quant.py`), and read each
+step by K4 (`ops/cross_decode.py`) when heads x query rows <= 256, else by
+an einsum over the same layout.
+"""
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..ops.cross_decode import cross_attention_int8, pad_bias
+from ..ops.kv_quant import pad_ta, project_quantize_kv, quantize_sym
+from .layers import (
+    LayerNorm,
+    Linear,
+    ResidualAttentionBlock,
+    gelu,
+    normal_,
+    quantize_linear,
+    reset_random_,
+)
+
+NEG_INF = float("-inf")
+KERNEL_MAX_ROWS = 256  # heads x query rows up to which K4 serves a call
+
+
+class Embedding(nn.Module):
+    def __init__(self, n_vocab: int, n_state: int, device=None, dtype=torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(n_vocab, n_state, device=device, dtype=dtype))
+
+
+class TextDecoder(nn.Module):
+    def __init__(self, dims, device=None, dtype=torch.float32):
+        super().__init__()
+        d = dims.n_text_state
+        self.token_embedding = Embedding(dims.n_vocab, d, device=device, dtype=dtype)
+        self.positional_embedding = nn.Parameter(
+            torch.empty(dims.n_text_ctx, d, device=device, dtype=dtype))
+        self.blocks = nn.ModuleList(
+            ResidualAttentionBlock(d, cross_attention=True, device=device, dtype=dtype)
+            for _ in range(dims.n_text_layer))
+        self.ln = LayerNorm(d, device=device, dtype=dtype)
+
+    def reset_random(self, gen: torch.Generator) -> None:
+        normal_(self.token_embedding.weight, 0.02, gen)
+        normal_(self.positional_embedding, 0.01, gen)
+        reset_random_(self, gen)
+
+
+class Parts(nn.Module):
+    """A named group of (shared) submodules and tensors: the decode-form
+    parameters are regroupings of the model's own, not copies."""
+
+    def __init__(self, **parts):
+        super().__init__()
+        for name, value in parts.items():
+            setattr(self, name, value)
+
+
+def fuse_decoder_blocks(decoder: TextDecoder) -> Parts:
+    """Decode-form parameters: each layer's self-attention q/k/v projections
+    concatenated into one [3D, D] linear (k's missing bias as zeros)."""
+    blocks = []
+    for blk in decoder.blocks:
+        a = blk.attn
+        qkv = Linear(1, 1, device="meta")  # a shell: both tensors are replaced
+        qkv.weight = nn.Parameter(torch.cat([a.query.weight, a.key.weight, a.value.weight]),
+                                  requires_grad=False)
+        qkv.bias = nn.Parameter(torch.cat([a.query.bias, torch.zeros_like(a.query.bias),
+                                           a.value.bias]), requires_grad=False)
+        blocks.append(Parts(attn=Parts(qkv=qkv, out=a.out), attn_ln=blk.attn_ln,
+                            cross_attn=blk.cross_attn, cross_attn_ln=blk.cross_attn_ln,
+                            mlp=blk.mlp, mlp_ln=blk.mlp_ln))
+    return Parts(token_embedding=decoder.token_embedding,
+                 positional_embedding=decoder.positional_embedding,
+                 blocks=nn.ModuleList(blocks), ln=decoder.ln)
+
+
+def quantize_decoder_blocks(fused: Parts, bits: int = 8) -> Parts:
+    """int8 per-output-channel weights for the decode loop's matmuls. The
+    cross-attention key/value projections stay full precision: their output
+    is quantized separately (K3)."""
+    blocks = []
+    for blk in fused.blocks:
+        ca = blk.cross_attn
+        blocks.append(Parts(
+            attn=Parts(qkv=quantize_linear(blk.attn.qkv, bits),
+                       out=quantize_linear(blk.attn.out, bits)),
+            attn_ln=blk.attn_ln,
+            cross_attn=Parts(query=quantize_linear(ca.query, bits), key=ca.key,
+                             value=ca.value, out=quantize_linear(ca.out, bits)),
+            cross_attn_ln=blk.cross_attn_ln,
+            mlp=nn.Sequential(quantize_linear(blk.mlp[0], bits), nn.GELU(),
+                              quantize_linear(blk.mlp[2], bits)),
+            mlp_ln=blk.mlp_ln))
+    return Parts(token_embedding=fused.token_embedding,
+                 positional_embedding=fused.positional_embedding,
+                 blocks=nn.ModuleList(blocks), ln=fused.ln)
+
+
+@dataclass
+class SelfKV:
+    """Self-attention cache [L, B, H, ctx, Dh]; with int8 codes, the scales
+    are fp32 [L, B, ctx, H] (one per row, slot and head)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+
+@dataclass
+class CrossKV:
+    """Cross-attention K/V of every layer. int8: codes [L, A, Ta_pad, D],
+    scales [L, A, H, Ta_pad], additive pad bias [Ta_pad] (K3/K4 layout);
+    plain: [L, A, Ta, D] in the compute dtype."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+    bias: Optional[torch.Tensor] = None
+
+
+def init_cache(n_layer: int, batch: int, n_ctx: int, n_state: int, dtype,
+               n_head: int, quantize: bool = False, device=None) -> SelfKV:
+    shape = (n_layer, batch, n_head, n_ctx, n_state // n_head)
+    if quantize:
+        scales = (n_layer, batch, n_ctx, n_head)
+        return SelfKV(torch.zeros(shape, dtype=torch.int8, device=device),
+                      torch.zeros(shape, dtype=torch.int8, device=device),
+                      torch.zeros(scales, dtype=torch.float32, device=device),
+                      torch.zeros(scales, dtype=torch.float32, device=device))
+    return SelfKV(torch.zeros(shape, dtype=dtype, device=device),
+                  torch.zeros(shape, dtype=dtype, device=device))
+
+
+def _split_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
+    """[B, S, D] -> [B, H, S, Dh]."""
+    b, s, d = x.shape
+    return x.reshape(b, s, n_head, d // n_head).transpose(1, 2)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """[B, H, S, Dh] -> [B, S, D]."""
+    b, h, s, dh = x.shape
+    return x.transpose(1, 2).reshape(b, s, h * dh)
+
+
+def precompute_cross_kv(params: Parts, xa: torch.Tensor, n_head: int,
+                        compute_dtype=torch.float32, quantize: bool = False) -> CrossKV:
+    """Cross-attention K/V of every layer from the encoded audio xa [A, Ta, D]."""
+    xa = xa.to(compute_dtype).contiguous()
+    a, ta, d = xa.shape
+    n_layer = len(params.blocks)
+    if not quantize:
+        k = torch.empty((n_layer, a, ta, d), dtype=compute_dtype, device=xa.device)
+        v = torch.empty_like(k)
+        for i, blk in enumerate(params.blocks):
+            k[i] = blk.cross_attn.key(xa)
+            v[i] = blk.cross_attn.value(xa)
+        return CrossKV(k, v)
+    ta_pad = pad_ta(ta)
+    k = torch.empty((n_layer, a, ta_pad, d), dtype=torch.int8, device=xa.device)
+    v = torch.empty_like(k)
+    ks = torch.empty((n_layer, a, n_head, ta_pad), dtype=torch.float32, device=xa.device)
+    vs = torch.empty_like(ks)
+    for i, blk in enumerate(params.blocks):
+        ca = blk.cross_attn
+        project_quantize_kv(xa, ca.key.weight, ca.value.weight, ca.value.bias,
+                            out=(k[i], ks[i], v[i], vs[i]))
+    return CrossKV(k, v, ks, vs, pad_bias(ta, ta_pad, xa.device))
+
+
+def _cross_attn_apply(blk, h: torch.Tensor, cross: CrossKV, layer: int, n_head: int,
+                      compute_dtype, group: int = 1) -> torch.Tensor:
+    """One layer's cross-attention with the residual added. `group` query
+    rows share one audio row; they fold into the query axis so each audio
+    row's K/V is read once."""
+    q = blk.cross_attn.query(blk.cross_attn_ln(h))
+    qh = _split_heads(q, n_head)                         # [B, H, S, Dh]
+    b, _, s, dh = qh.shape
+    a = b // group
+    if group > 1:
+        qh = qh.reshape(a, group, n_head, s, dh).transpose(1, 2).reshape(
+            a, n_head, group * s, dh)
+    rows = qh.shape[2]
+    scale = dh ** -0.5
+    if cross.k_scale is not None:
+        ck, cv = cross.k[layer], cross.v[layer]
+        ks, vs = cross.k_scale[layer], cross.v_scale[layer]
+        ta_pad = ck.shape[1]
+        if n_head * rows <= KERNEL_MAX_ROWS:
+            q_rows = (qh * scale).reshape(a, n_head * rows, dh).to(compute_dtype)
+            out = cross_attention_int8(q_rows.contiguous(), ck, ks, cv, vs,
+                                       cross.bias, n_head)
+            attn = out.reshape(a, n_head, rows, dh).to(compute_dtype)
+        else:
+            k4 = ck.reshape(a, ta_pad, n_head, dh).permute(0, 2, 3, 1)
+            qk = (torch.matmul(qh.float(), k4.to(compute_dtype).float())
+                  * ks[:, :, None, :] * scale + cross.bias)
+            w = (torch.softmax(qk, dim=-1) * vs[:, :, None, :]).to(compute_dtype)
+            v4 = cv.reshape(a, ta_pad, n_head, dh).permute(0, 2, 1, 3)
+            attn = torch.matmul(w, v4.to(compute_dtype))
+    else:
+        kh = _split_heads(cross.k[layer].to(compute_dtype), n_head)
+        vh = _split_heads(cross.v[layer].to(compute_dtype), n_head)
+        qk = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * scale
+        attn = torch.matmul(torch.softmax(qk, dim=-1).to(compute_dtype), vh)
+    if group > 1:
+        attn = attn.reshape(a, n_head, group, s, dh).transpose(1, 2).reshape(
+            b, n_head, s, dh)
+    return h + blk.cross_attn.out(_merge_heads(attn))
+
+
+def decoder_forward(params: Parts, tokens: torch.Tensor, cross: CrossKV,
+                    cache: SelfKV, write_pos: int, pad: int, n_head: int,
+                    compute_dtype=torch.float32, group: int = 1) -> torch.Tensor:
+    """One pass over tokens [B, S] written at cache slots write_pos..+S
+    (prefill: S = bucket; step: S = 1). Updates `cache` in place and returns
+    the hidden states [B, S, D] after the final LN."""
+    dev = tokens.device
+    s = tokens.shape[1]
+    end = write_pos + s  # slots past `end` are masked, so they are not read
+    pos = torch.clamp(torch.arange(write_pos, end, device=dev) - pad, min=0)
+    x = (params.token_embedding.weight[tokens]
+         + params.positional_embedding[pos]).to(compute_dtype)
+
+    # key slot j is visible to query i iff pad <= j <= write_pos + i; the
+    # `slots == qpos` term keeps a pad query row from being fully masked (a
+    # fully masked softmax is NaN, which would poison the cache)
+    slots = torch.arange(end, device=dev)[None, :]
+    qpos = torch.arange(write_pos, end, device=dev)[:, None]
+    allowed = ((slots >= pad) & (slots <= qpos)) | (slots == qpos)
+    mask = torch.zeros(allowed.shape, device=dev).masked_fill(~allowed, NEG_INF)
+
+    quantized = cache.k_scale is not None
+    for i, blk in enumerate(params.blocks):
+        q, k_new, v_new = blk.attn.qkv(blk.attn_ln(x)).chunk(3, dim=-1)
+        qh = _split_heads(q, n_head)
+        kh, vh = _split_heads(k_new, n_head), _split_heads(v_new, n_head)
+        scale = qh.shape[-1] ** -0.5
+        if quantized:
+            for codes, scales, new in ((cache.k, cache.k_scale, kh),
+                                       (cache.v, cache.v_scale, vh)):
+                nq, ns = quantize_sym(new, dim=-1)
+                codes[i, :, :, write_pos:end] = nq
+                scales[i, :, write_pos:end] = ns[..., 0].transpose(1, 2)
+            k_s = cache.k_scale[i, :, :end].transpose(1, 2)  # [B, H, end]
+            v_s = cache.v_scale[i, :, :end].transpose(1, 2)
+            k_all = cache.k[i, :, :, :end].to(compute_dtype)
+            qk = (torch.matmul(qh.float(), k_all.float().transpose(-1, -2))
+                  * k_s[:, :, None, :] * scale + mask)
+            w = (torch.softmax(qk, dim=-1) * v_s[:, :, None, :]).to(compute_dtype)
+            attn = torch.matmul(w, cache.v[i, :, :, :end].to(compute_dtype))
+        else:
+            cache.k[i, :, :, write_pos:end] = kh.to(cache.k.dtype)
+            cache.v[i, :, :, write_pos:end] = vh.to(cache.v.dtype)
+            k_all = cache.k[i, :, :, :end].to(compute_dtype)
+            qk = torch.matmul(qh.float(), k_all.float().transpose(-1, -2)) * scale + mask
+            attn = torch.matmul(torch.softmax(qk, dim=-1).to(compute_dtype),
+                                cache.v[i, :, :, :end].to(compute_dtype))
+        x = x + blk.attn.out(_merge_heads(attn))
+        x = _cross_attn_apply(blk, x, cross, i, n_head, compute_dtype, group)
+        x = x + blk.mlp[2](gelu(blk.mlp[0](blk.mlp_ln(x))))
+    return params.ln(x)
+
+
+def project_logits(params: Parts, hidden: torch.Tensor) -> torch.Tensor:
+    """Tied-embedding output projection in fp32: [B, S, D] -> [B, S, V]."""
+    emb = params.token_embedding.weight.to(hidden.dtype).float()
+    return torch.matmul(hidden.float(), emb.t())
+
+
+def logits_full(params: Parts, tokens: torch.Tensor, audio_features: torch.Tensor,
+                n_head: int, compute_dtype) -> torch.Tensor:
+    """Non-incremental forward (plain cross K/V, plain cache) -> [B, S, V] fp32."""
+    b, s = tokens.shape
+    cross = precompute_cross_kv(params, audio_features, n_head, compute_dtype)
+    d = audio_features.shape[-1]
+    cache = init_cache(len(params.blocks), b, s, d, compute_dtype, n_head,
+                       device=tokens.device)
+    hidden = decoder_forward(params, tokens, cross, cache, 0, 0, n_head, compute_dtype)
+    return project_logits(params, hidden)
+

@@ -1,0 +1,84 @@
+"""Audio encoder: conv stem, transformer blocks on K1/K2, pooled taps.
+
+Counterpart of `whisper_at_tpu/models/encoder.py::encoder_apply`. The
+Whisper-AT addition: after every block the hidden states are averaged 20x
+along time, and the per-layer stack [B, L, 75, D] (taken before ln_post)
+feeds the TL-TR head.
+"""
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.enc_attention import enc_attention
+from ..ops.enc_mlp import enc_mlp
+from .layers import (
+    LayerNorm,
+    ResidualAttentionBlock,
+    gelu,
+    reset_random_,
+    sinusoids,
+    uniform_,
+)
+
+POOL = 20  # time pooling of the taps
+
+
+class Conv1d(nn.Module):
+    """Weight [out, in, 3] and bias [out] (torch Conv1d layout)."""
+
+    def __init__(self, n_in: int, n_out: int, device=None, dtype=torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(n_out, n_in, 3, device=device, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(n_out, device=device, dtype=dtype))
+
+    def forward(self, x: torch.Tensor, stride: int) -> torch.Tensor:
+        y = F.conv1d(x, self.weight.to(x.dtype), stride=stride, padding=1)
+        return y + self.bias.to(x.dtype)[:, None]
+
+
+class AudioEncoder(nn.Module):
+    def __init__(self, dims, device=None, dtype=torch.float32):
+        super().__init__()
+        d = dims.n_audio_state
+        self.conv1 = Conv1d(dims.n_mels, d, device=device, dtype=dtype)
+        self.conv2 = Conv1d(d, d, device=device, dtype=dtype)
+        self.register_buffer("positional_embedding",
+                             sinusoids(dims.n_audio_ctx, d).to(device=device, dtype=dtype))
+        self.blocks = nn.ModuleList(
+            ResidualAttentionBlock(d, device=device, dtype=dtype)
+            for _ in range(dims.n_audio_layer))
+        self.ln_post = LayerNorm(d, device=device, dtype=dtype)
+
+    def reset_random(self, gen: torch.Generator) -> None:
+        """Conv weights U(+-(3 * in)^-0.5) and zero conv biases, as the JAX
+        package initializes them; the blocks as `reset_random_` does."""
+        for conv in (self.conv1, self.conv2):
+            std = (conv.weight.shape[1] * 3) ** -0.5
+            uniform_(conv.weight, -std, std, gen)
+            with torch.no_grad():
+                conv.bias.zero_()
+        reset_random_(self.blocks, gen)
+
+
+def encoder_apply(encoder: AudioEncoder, mel: torch.Tensor, n_head: int,
+                  compute_dtype=torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
+    """mel [B, 80, 3000] -> (features [B, 1500, D] after ln_post,
+    taps [B, L, 75, D]: each block's output pooled 20x, before ln_post)."""
+    x = mel.to(compute_dtype)
+    x = gelu(encoder.conv1(x, stride=1))
+    x = gelu(encoder.conv2(x, stride=2))                    # [B, D, T]
+    x = (x.transpose(1, 2) + encoder.positional_embedding.to(compute_dtype)).contiguous()
+    b, t, d = x.shape
+    taps = []
+    for block in encoder.blocks:
+        h = block.attn_ln(x)
+        q, k, v = block.attn.query(h), block.attn.key(h), block.attn.value(h)
+        x = x + block.attn.out(enc_attention(q, k, v, n_head))
+        fc1, fc2 = block.mlp[0], block.mlp[2]
+        x = enc_mlp(x, block.mlp_ln.weight, block.mlp_ln.bias,
+                    fc1.weight, fc1.bias, fc2.weight, fc2.bias)
+        taps.append(x.reshape(b, t // POOL, POOL, d).mean(dim=2))
+    return encoder.ln_post(x), torch.stack(taps, dim=1)

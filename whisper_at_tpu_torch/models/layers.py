@@ -1,0 +1,189 @@
+"""Transformer building blocks shared by the encoder, decoder and TL-TR head.
+
+PyTorch counterpart of `whisper_at_tpu/models/layers.py`. Parameters live in
+`nn.Module`s whose names follow the reference Whisper checkpoints
+(`attn.query.weight`, `mlp.0.weight`, `attn_ln.weight`, ...), with linear
+weights in torch's [out, in] layout. The arithmetic mirrors the JAX package:
+layer norm in an fp32 island, attention logits and softmax in fp32, matmul
+weights cast to the activation dtype (bf16 on the card, fp32 in the CPU
+tests).
+"""
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+LN_EPS = 1e-5
+
+
+def sinusoids(length: int, channels: int, max_timescale: float = 10000) -> torch.Tensor:
+    """Sinusoidal position embeddings [length, channels], fp32."""
+    if channels % 2:
+        raise ValueError("channels must be even")
+    step = np.log(max_timescale) / (channels // 2 - 1)
+    inv = np.exp(-step * np.arange(channels // 2))
+    scaled = np.arange(length)[:, None] * inv[None, :]
+    table = np.concatenate([np.sin(scaled), np.cos(scaled)], axis=1)
+    return torch.from_numpy(table.astype(np.float32))
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """LayerNorm computed in fp32, cast back to the input dtype."""
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    normed = (x32 - mean) * torch.rsqrt(var + LN_EPS)
+    return (normed * weight.float() + bias.float()).to(x.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) GELU."""
+    return F.gelu(x)
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """y = x @ weight^T (+ bias), weight [out, in] cast to x.dtype; the bias
+    is added after the product is rounded to x.dtype, as in the JAX package."""
+    y = torch.matmul(x, weight.to(x.dtype).t())
+    if bias is not None:
+        y = y + bias.to(x.dtype)
+    return y
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, n: int, device=None, dtype=torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(n, device=device, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(n, device=device, dtype=dtype))
+
+    def forward(self, x):
+        return layer_norm(x, self.weight, self.bias)
+
+
+class Linear(nn.Module):
+    def __init__(self, n_in: int, n_out: int, bias: bool = True, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(n_out, n_in, device=device, dtype=dtype))
+        self.bias = (nn.Parameter(torch.empty(n_out, device=device, dtype=dtype))
+                     if bias else None)
+
+    def forward(self, x):
+        return linear(x, self.weight, self.bias)
+
+    def reset_random(self, gen: torch.Generator) -> None:
+        """U(-1/sqrt(in), 1/sqrt(in)) for weight and bias (JAX init_linear)."""
+        std = 1.0 / math.sqrt(self.weight.shape[1])
+        uniform_(self.weight, -std, std, gen)
+        if self.bias is not None:
+            uniform_(self.bias, -std, std, gen)
+
+
+class QuantLinear(nn.Module):
+    """int8 weights with per-output-channel fp32 scales:
+    y = (x @ w_q^T.to(x.dtype)) * w_s.to(x.dtype) (+ bias)."""
+
+    def __init__(self, w_q: torch.Tensor, w_s: torch.Tensor,
+                 bias: Optional[torch.Tensor]):
+        super().__init__()
+        self.register_buffer("w_q", w_q)
+        self.register_buffer("w_s", w_s)
+        self.bias = bias
+
+    def forward(self, x):
+        y = torch.matmul(x, self.w_q.to(x.dtype).t()) * self.w_s.to(x.dtype)
+        if self.bias is not None:
+            y = y + self.bias.to(x.dtype)
+        return y
+
+
+def quantize_linear(lin: Linear, bits: int = 8) -> QuantLinear:
+    """Symmetric per-output-channel int8 quantization of a linear layer
+    (scale = amax over the input axis / 127 + 1e-12)."""
+    if bits != 8:
+        raise NotImplementedError("only 8-bit weight quantization is ported")
+    w = lin.weight.detach().float()
+    scale = w.abs().amax(dim=1) / 127.0 + 1e-12
+    q = torch.clamp(torch.round(w / scale[:, None]), -127, 127).to(torch.int8)
+    return QuantLinear(q, scale, lin.bias)
+
+
+def uniform_(t: torch.Tensor, lo: float, hi: float, gen: torch.Generator) -> None:
+    """Fill t in place with U(lo, hi) drawn in fp32 from `gen` (on t's device)."""
+    with torch.no_grad():
+        r = torch.rand(t.shape, generator=gen, device=t.device, dtype=torch.float32)
+        t.copy_(r * (hi - lo) + lo)
+
+
+def normal_(t: torch.Tensor, std: float, gen: torch.Generator) -> None:
+    with torch.no_grad():
+        r = torch.randn(t.shape, generator=gen, device=t.device, dtype=torch.float32)
+        t.copy_(r * std)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_head: int,
+              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Scaled dot-product attention [B, T, D] x [B, S, D] -> [B, T, D] with
+    fp32 logits and softmax; the weights are cast to q.dtype for the value
+    product. mask: additive fp32 bias broadcastable to [B, H, T, S]."""
+    b, t, d = q.shape
+    dh = d // n_head
+    qh = q.reshape(b, t, n_head, dh).transpose(1, 2)
+    kh = k.reshape(b, k.shape[1], n_head, dh).transpose(1, 2)
+    vh = v.reshape(b, v.shape[1], n_head, dh).transpose(1, 2)
+    qk = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * (dh ** -0.5)
+    if mask is not None:
+        qk = qk + mask
+    w = torch.softmax(qk, dim=-1).to(q.dtype)
+    out = torch.matmul(w, vh)
+    return out.transpose(1, 2).reshape(b, t, d)
+
+
+class MultiHeadAttention(nn.Module):
+    def __init__(self, n_state: int, device=None, dtype=torch.float32):
+        super().__init__()
+        self.query = Linear(n_state, n_state, device=device, dtype=dtype)
+        self.key = Linear(n_state, n_state, bias=False, device=device, dtype=dtype)
+        self.value = Linear(n_state, n_state, device=device, dtype=dtype)
+        self.out = Linear(n_state, n_state, device=device, dtype=dtype)
+
+
+class ResidualAttentionBlock(nn.Module):
+    """Pre-LN block: self-attention, optional cross-attention, 4x GELU MLP."""
+
+    def __init__(self, n_state: int, cross_attention: bool = False, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.attn = MultiHeadAttention(n_state, **kw)
+        self.attn_ln = LayerNorm(n_state, **kw)
+        self.cross_attn = MultiHeadAttention(n_state, **kw) if cross_attention else None
+        self.cross_attn_ln = LayerNorm(n_state, **kw) if cross_attention else None
+        self.mlp = nn.Sequential(Linear(n_state, 4 * n_state, **kw), nn.GELU(),
+                                 Linear(4 * n_state, n_state, **kw))
+        self.mlp_ln = LayerNorm(n_state, **kw)
+
+    def forward(self, x: torch.Tensor, n_head: int,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Plain self-attention block (the TL-TR head's transformer layers)."""
+        h = self.attn_ln(x)
+        q, k, v = self.attn.query(h), self.attn.key(h), self.attn.value(h)
+        x = x + self.attn.out(attention(q, k, v, n_head, mask=mask))
+        h = self.mlp_ln(x)
+        return x + self.mlp[2](gelu(self.mlp[0](h)))
+
+
+def reset_random_(module: nn.Module, gen: torch.Generator) -> None:
+    """Random init of every Linear (uniform); LayerNorms to ones/zeros."""
+    for m in module.modules():
+        if isinstance(m, Linear):
+            m.reset_random(gen)
+        elif isinstance(m, LayerNorm):
+            with torch.no_grad():
+                m.weight.fill_(1.0)
+                m.bias.fill_(0.0)

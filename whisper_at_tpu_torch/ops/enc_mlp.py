@@ -1,0 +1,61 @@
+"""K2: the encoder MLP half-block  x + fc2(gelu(fc1(LN(x)))).
+
+Replaces `whisper_at_tpu/ops/mlp_enc.py::mlp_block_fused` (Pallas). The CUDA
+source is `csrc/enc_mlp.cu`: one call launches an LN kernel and two tensor-
+core GEMMs with fused epilogues (bias + erf-GELU, then bias + residual); its
+header says why the TPU's single fused kernel was not carried over.
+"""
+
+import ctypes
+
+import torch
+
+from ..models.layers import gelu, layer_norm
+from .cuda import CudaKernel, ptr, require_cuda, stream_handle
+
+KERNEL = CudaKernel(
+    "enc_mlp", "enc_mlp.cu", "enc_mlp_bf16",
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    replaces="whisper_at_tpu/ops/mlp_enc.py:93",
+)
+
+
+def enc_mlp_plain(x, ln_w, ln_b, w1, b1, w2, b2) -> torch.Tensor:
+    """The same function in plain PyTorch: fp32 products and epilogues, the
+    LN output and the gelu intermediate rounded to x.dtype as in the kernel."""
+    xn = layer_norm(x, ln_w, ln_b)
+    h = gelu(torch.matmul(xn.float(), w1.float().t()) + b1.float()).to(x.dtype)
+    y = x.float() + (torch.matmul(h.float(), w2.float().t()) + b2.float())
+    return y.to(x.dtype)
+
+
+def enc_mlp(x, ln_w, ln_b, w1, b1, w2, b2) -> torch.Tensor:
+    """x [B, T, D]; ln_w, ln_b [D]; w1 [4D, D], b1 [4D]; w2 [D, 4D], b2 [D]
+    (torch Linear layout). Returns x + fc2(gelu(fc1(LN(x))))."""
+    if not x.is_cuda:
+        return enc_mlp_plain(x, ln_w, ln_b, w1, b1, w2, b2)
+    b, t, d = x.shape
+    f = w1.shape[0]
+    if d % 128 or f % 128:
+        raise ValueError(f"the kernel takes D and 4D multiples of 128, got {d}, {f}")
+    if w1.shape != (f, d) or w2.shape != (d, f):
+        raise ValueError(f"bad weight shapes {tuple(w1.shape)}, {tuple(w2.shape)}")
+    x2 = x.reshape(b * t, d)
+    require_cuda(x2, torch.bfloat16, "x", 2)
+    w1 = w1.to(torch.bfloat16).contiguous()
+    w2 = w2.to(torch.bfloat16).contiguous()
+    require_cuda(w1, torch.bfloat16, "w1", 2)
+    require_cuda(w2, torch.bfloat16, "w2", 2)
+    vecs = [p.float().contiguous() for p in (ln_w, ln_b, b1, b2)]
+    for name, p, n in zip(("ln_w", "ln_b", "b1", "b2"), vecs, (d, d, f, d)):
+        require_cuda(p, torch.float32, name, 1)
+        if p.shape[0] != n:
+            raise ValueError(f"{name} must have {n} entries")
+    m = b * t
+    xn = torch.empty_like(x2)
+    h = torch.empty((m, f), device=x.device, dtype=torch.bfloat16)
+    out = torch.empty_like(x2)
+    KERNEL.launch(ptr(x2), ptr(vecs[0]), ptr(vecs[1]), ptr(w1), ptr(vecs[2]),
+                  ptr(w2), ptr(vecs[3]), ptr(xn), ptr(h), ptr(out), m, d, f,
+                  stream_handle(x.device))
+    return out.reshape(b, t, d)

@@ -1,0 +1,103 @@
+"""K3: one decoder layer's cross-attention K/V projection + int8 quantization.
+
+Replaces `whisper_at_tpu/ops/kv_quant.py::project_quantize_kv` (Pallas) and
+carries `_quantize_sym` (`whisper_at_tpu/models/decoder.py:241`). The CUDA
+source is `csrc/kv_quant.cu`; its header gives the bound and the design.
+
+Layout, chosen together with K4 (`ops/cross_decode.py`): codes are row-major
+int8 [B, Ta_pad, H*64], so the 64 codes of one (position, head) are
+contiguous, and scales are fp32 [B, H, Ta_pad]. Positions t >= Ta carry
+zero codes and zero scales.
+"""
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from ..models.layers import linear
+from .cuda import CudaKernel, ptr, require_cuda, stream_handle
+
+KERNEL = CudaKernel(
+    "kv_quant", "kv_quant.cu", "kv_quant_bf16",
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    replaces="whisper_at_tpu/ops/kv_quant.py:102",
+)
+HEAD_DIM = 64
+LANE = 128
+
+
+def pad_ta(ta: int) -> int:
+    """Audio positions padded to a multiple of 128."""
+    return -(-ta // LANE) * LANE
+
+
+def quantize_sym(x: torch.Tensor, dim: int = -1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantization with one scale per slice along `dim`:
+    scale = amax / 127 + 1e-12, q = clip(round(x / scale), -127, 127).
+    Returns (int8 codes, fp32 scales with `dim` kept as size 1)."""
+    x32 = x.float()
+    scale = x32.abs().amax(dim=dim, keepdim=True) / 127.0 + 1e-12
+    q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _allocate(b: int, ta_pad: int, d: int, device):
+    codes = lambda: torch.empty((b, ta_pad, d), device=device, dtype=torch.int8)
+    scales = lambda: torch.empty((b, d // HEAD_DIM, ta_pad), device=device,
+                                 dtype=torch.float32)
+    return codes(), scales(), codes(), scales()
+
+
+def project_quantize_kv_plain(xa, wk, wv, bv, out: Optional[tuple] = None):
+    """The same function in plain PyTorch (see `project_quantize_kv`)."""
+    b, ta, d = xa.shape
+    ta_pad = pad_ta(ta)
+    h = d // HEAD_DIM
+    if out is None:
+        out = _allocate(b, ta_pad, d, xa.device)
+    kq, ks, vq, vs = out
+    for y, q_out, s_out in ((linear(xa, wk), kq, ks), (linear(xa, wv, bv), vq, vs)):
+        q, s = quantize_sym(y.reshape(b, ta, h, HEAD_DIM), dim=-1)
+        q_out[:, :ta] = q.reshape(b, ta, d)
+        q_out[:, ta:] = 0
+        s_out[:, :, :ta] = s[..., 0].transpose(1, 2)
+        s_out[:, :, ta:] = 0
+    return kq, ks, vq, vs
+
+
+def project_quantize_kv(xa: torch.Tensor, wk: torch.Tensor, wv: torch.Tensor,
+                        bv: torch.Tensor, out: Optional[tuple] = None):
+    """k = xa @ wk^T and v = xa @ wv^T + bv, each rounded to xa.dtype, then
+    int8 per (position, head). xa [B, Ta, D]; wk, wv [D, D] ([out, in]);
+    bv [D]. Returns (k codes, k scales, v codes, v scales) as
+    int8 [B, Ta_pad, D], fp32 [B, H, Ta_pad], int8, fp32 — written into
+    `out` when given (views of a preallocated stack)."""
+    if not xa.is_cuda:
+        return project_quantize_kv_plain(xa, wk, wv, bv, out)
+    b, ta, d = xa.shape
+    ta_pad = pad_ta(ta)
+    if d % LANE:
+        raise ValueError(f"the kernel takes D a multiple of {LANE}, got {d}")
+    require_cuda(xa, torch.bfloat16, "xa", 3)
+    wk = wk.to(torch.bfloat16).contiguous()
+    wv = wv.to(torch.bfloat16).contiguous()
+    bv = bv.to(torch.bfloat16).contiguous()
+    for name, w in (("wk", wk), ("wv", wv)):
+        require_cuda(w, torch.bfloat16, name, 2)
+        if w.shape != (d, d):
+            raise ValueError(f"{name} must be [{d}, {d}]")
+    require_cuda(bv, torch.bfloat16, "bv", 1)
+    if out is None:
+        out = _allocate(b, ta_pad, d, xa.device)
+    kq, ks, vq, vs = out
+    for name, t, dtype, shape in (("kq", kq, torch.int8, (b, ta_pad, d)),
+                                  ("ks", ks, torch.float32, (b, d // HEAD_DIM, ta_pad)),
+                                  ("vq", vq, torch.int8, (b, ta_pad, d)),
+                                  ("vs", vs, torch.float32, (b, d // HEAD_DIM, ta_pad))):
+        require_cuda(t, dtype, name, 3)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    KERNEL.launch(ptr(xa), ptr(wk), ptr(wv), ptr(bv), ptr(kq), ptr(ks), ptr(vq),
+                  ptr(vs), b, ta, ta_pad, d, stream_handle(xa.device))
+    return kq, ks, vq, vs

@@ -1,0 +1,216 @@
+"""Batched long-audio transcription and tagging: `transcribe_batched`.
+
+Counterpart of `whisper_at_tpu/transcribe.py::transcribe_batched`. Every
+30 s window of the recording rides the batch axis: one mel pass, one
+encoder + TL-TR pass and one batched greedy decode per chunk of up to
+`max_batch` windows; the temperature ladder re-decodes only the windows
+the quality gate rejects. Windows advance at a fixed 30 s stride and no
+text is carried from one window to the next (the
+condition_on_previous_text=False mode).
+
+Not ported yet, and refused with NotImplementedError: word timestamps,
+a device mesh, the sequential `transcribe` and `transcribe_many`.
+"""
+
+from typing import List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from .audio import HOP_LENGTH, N_FRAMES, N_SAMPLES, SAMPLE_RATE, log_mel_spectrogram, pad_or_trim
+from .decoding import DecodingOptions, DecodingResult, DecodingTask, detect_language
+from .languages import LANGUAGES
+from .segmentation import QualityGate, TagGrid, parse_window, segment_record, temperature_schedule
+from .tokenizer import get_tokenizer
+from .utils import exact_div, format_timestamp, make_safe
+
+DEFAULT_MAX_BATCH = 24  # 30 s windows per device batch
+
+
+def print_segment(seg: dict) -> None:
+    print(make_safe(f"[{format_timestamp(seg['start'])} --> "
+                    f"{format_timestamp(seg['end'])}] {seg['text']}"))
+
+
+def _resolve_language(model, mel_window: torch.Tensor, decode_options: dict,
+                      verbose: Optional[bool]) -> str:
+    """Fill decode_options["language"], detecting it from the first window
+    when it is unset on a multilingual model."""
+    if decode_options.get("language") is None:
+        if not model.is_multilingual:
+            decode_options["language"] = "en"
+        else:
+            if verbose:
+                print("Detecting language using up to the first 30 seconds. "
+                      "Use `--language` to specify the language")
+            _, probs = detect_language(model, mel_window)
+            decode_options["language"] = max(probs, key=probs.get)
+            if verbose is not None:
+                print(f"Detected language: {LANGUAGES[decode_options['language']].title()}")
+    return decode_options["language"]
+
+
+def _geometry(model) -> Tuple[int, float]:
+    """(mel frames per encoder position, seconds per timestamp token)."""
+    stride = exact_div(N_FRAMES, model.dims.n_audio_ctx)
+    return stride, stride * HOP_LENGTH / SAMPLE_RATE
+
+
+def _mel_to_windows(mel: torch.Tensor):
+    """[80, T] mel (with its 30 s tail padding) -> ([W, 80, 3000] windows,
+    content frames); W is 0 (windows None) for empty audio."""
+    content_frames = mel.shape[-1] - N_FRAMES
+    n_windows = -(-content_frames // N_FRAMES)
+    if n_windows <= 0:
+        return None, content_frames
+    mel = pad_or_trim(mel, n_windows * N_FRAMES)
+    return mel.reshape(mel.shape[0], n_windows, N_FRAMES).transpose(0, 1), content_frames
+
+
+def _batch_bucket(n: int, max_batch: int) -> int:
+    """Smallest batch of the ladder 1, 2, 4, 8, 16, max_batch that holds n rows."""
+    ladder = [b for b in (1, 2, 4, 8, 16) if b < max_batch] + [max_batch]
+    return next(b for b in ladder if b >= n)
+
+
+def _decode_windows_batched(model, windows: torch.Tensor, temperature, gate: QualityGate,
+                            decode_options: dict, max_batch: int) -> List[DecodingResult]:
+    """Decode every window in chunks of max_batch; each rung of the
+    temperature ladder re-decodes only the windows the gate rejected."""
+    n_windows = windows.shape[0]
+    results: List[Optional[DecodingResult]] = [None] * n_windows
+    pending = list(range(n_windows))
+    for t, kwargs in temperature_schedule(temperature, decode_options):
+        if not pending:
+            break
+        task = DecodingTask(model, DecodingOptions(**kwargs, temperature=t))
+        for lo in range(0, len(pending), max_batch):
+            chunk = pending[lo:lo + max_batch]
+            # pad with copies of the last row to a bucketed batch size (the
+            # copies are decoded and dropped), as the JAX package does
+            rows = chunk + [chunk[-1]] * (_batch_bucket(len(chunk), max_batch) - len(chunk))
+            batch = windows[torch.tensor(rows, device=windows.device)]
+            for w, r in zip(chunk, task.run(batch)):
+                results[w] = r
+        pending = [w for w in pending if gate.needs_fallback(results[w])]
+    return results
+
+
+def _stitch_tags_dispatch(model, entries, at_time_res: float, max_batch: int):
+    """Run the TL-TR head over every window's taps, grouped by pooled-frame
+    grid offset and max_batch at a time; return a callback that copies the
+    logits into each window's TagGrid. entries: (grid, seek, taps [L, 75, D])."""
+    groups = {}
+    for i, (grid, seek, _) in enumerate(entries):
+        groups.setdefault(grid.offset_in_window(seek), []).append(i)
+    pending = []
+    for offset, idxs in groups.items():
+        for lo in range(0, len(idxs), max_batch):
+            chunk = idxs[lo:lo + max_batch]
+            feats = torch.stack([entries[i][2] for i in chunk])
+            pending.append((chunk, model.at_forward(feats[:, :, offset:], at_time_res)))
+
+    def commit():
+        for chunk, tags in pending:
+            tags = tags.float().cpu().numpy()
+            for row, i in enumerate(chunk):
+                grid, seek, _ = entries[i]
+                grid.write(seek, tags[row])
+
+    return commit
+
+
+def _assemble_windows(results, content_frames: int, tokenizer, gate: QualityGate,
+                      input_stride: int, time_precision: float, verbose):
+    """Window results at a fixed 30 s stride -> (tokens, segments)."""
+    all_tokens: List[int] = []
+    all_segments: List[dict] = []
+    for w, result in enumerate(results):
+        seek = w * N_FRAMES
+        if seek >= content_frames:
+            break
+        if gate.is_silence(result):
+            continue
+        size = min(N_FRAMES, content_frames - seek)
+        parse = parse_window(
+            np.asarray(result.tokens, np.int64), timestamp_begin=tokenizer.timestamp_begin,
+            time_offset=float(seek * HOP_LENGTH / SAMPLE_RATE), segment_size=size,
+            segment_duration=size * HOP_LENGTH / SAMPLE_RATE, input_stride=input_stride,
+            time_precision=time_precision)
+        for start, end, toks in parse.pieces:
+            seg = segment_record(seek=seek, start=start, end=end, tokens=toks,
+                                 result=result, eot=tokenizer.eot, tokenizer=tokenizer)
+            if seg["start"] == seg["end"] or not seg["text"].strip():
+                continue
+            seg["id"] = len(all_segments)
+            all_segments.append(seg)
+            all_tokens.extend(seg["tokens"])
+            if verbose:
+                print_segment(seg)
+    return all_tokens, all_segments
+
+
+def transcribe_batched(
+    model,
+    audio: Union[str, np.ndarray, torch.Tensor],
+    *,
+    temperature: Union[float, Tuple[float, ...]] = (0.0, 0.2, 0.4, 0.6, 0.8, 1.0),
+    compression_ratio_threshold: Optional[float] = 2.4,
+    logprob_threshold: Optional[float] = -1.0,
+    no_speech_threshold: Optional[float] = 0.6,
+    at_time_res: float = 10,
+    max_batch: int = DEFAULT_MAX_BATCH,
+    mesh=None,
+    initial_prompt: Optional[str] = None,
+    word_timestamps: bool = False,
+    verbose: Optional[bool] = None,
+    **decode_options,
+) -> dict:
+    """Transcribe and tag a recording (WAV path, int16 PCM or float32 at
+    16 kHz) on the model's device. Returns {"text", "segments", "language",
+    "at_time_res", "audio_tag" [n_cells, 527]}."""
+    if word_timestamps:
+        raise NotImplementedError("word timestamps are not ported yet")
+    if mesh is not None:
+        raise NotImplementedError("a device mesh is not ported yet")
+    if decode_options.pop("condition_on_previous_text", False):
+        raise ValueError("condition_on_previous_text=True is sequential; the batched "
+                         "path decodes windows in parallel")
+    with torch.no_grad():
+        mel = log_mel_spectrogram(audio, padding=N_SAMPLES, device=model.device)
+        gate = QualityGate(compression_ratio_threshold, logprob_threshold,
+                           no_speech_threshold)
+        language = _resolve_language(model, pad_or_trim(mel, N_FRAMES), decode_options,
+                                     verbose)
+        tokenizer = get_tokenizer(model.is_multilingual, language=language,
+                                  task=decode_options.get("task", "transcribe"))
+        input_stride, time_precision = _geometry(model)
+
+        windows, content_frames = _mel_to_windows(mel)
+        grid = TagGrid(content_frames, at_time_res)
+        if windows is None:
+            return dict(text="", segments=[], language=language,
+                        at_time_res=at_time_res, audio_tag=grid.logits)
+        if initial_prompt is not None:
+            decode_options["prompt"] = tokenizer.encode(" " + initial_prompt.strip())
+
+        results = _decode_windows_batched(model, windows, temperature, gate,
+                                          decode_options, max_batch)
+        commit_tags = _stitch_tags_dispatch(
+            model, [(grid, w * N_FRAMES, r.audio_features_for_at)
+                    for w, r in enumerate(results)], at_time_res, max_batch)
+        tokens, segments = _assemble_windows(results, content_frames, tokenizer, gate,
+                                             input_stride, time_precision, verbose)
+        commit_tags()
+    return dict(text=tokenizer.decode(tokens), segments=segments, language=language,
+                at_time_res=at_time_res, audio_tag=grid.logits)
+
+
+def transcribe(*args, **kwargs):
+    raise NotImplementedError("the sequential transcribe is not ported yet; "
+                              "use transcribe_batched")
+
+
+def transcribe_many(*args, **kwargs):
+    raise NotImplementedError("transcribe_many is not ported yet; "
+                              "call transcribe_batched per recording")
