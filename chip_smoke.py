@@ -6,18 +6,28 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 It (1) builds every hand-written CUDA kernel of the port from
 `whisper_at_tpu_torch/csrc` (one nvcc per source, all at once), (2) holds
-each kernel against its plain PyTorch version at the shapes of the headline
-workload (large-v1, batch 24, bf16) and times both, (3) drives the port's
-`transcribe_batched` once at large-v1 full width with random weights from a
-seeded generator over synthesized int16 audio, with the kernels' launch
-counts reset just before and read just after, and checks its output.
+each kernel against its plain PyTorch version at the shapes its path gives
+it (the headline workload: large-v1, batch 24, bf16; the DTW at the word
+timing's matrix sizes) and times both, then drives three paths of the port
+at large-v1 full width with random weights from a seeded generator over
+synthesized int16 audio, each with the kernels' launch counts reset just
+before and read just after, and checks its output:
+(3) the headline `transcribe_batched` call (K1-K4);
+(4) the same call with word timestamps, its windows forced to full-length
+    text (`words_opts`; K1-K4 and K6);
+(5) the sequential `transcribe` with word timestamps over 60 s (K1-K4, K6).
+Each path's kernel inputs are also recorded (`Recorder`) and every kernel
+is held against its plain version on them: K1-K4 at each shape the path
+gave them, K6 on every call.
 
 Printed, in order: the card's name and power limit (nvidia-smi), the build
-time, one line per kernel check, the transcription's throughput and launch
-counts, then a JSON line with every kernel's numbers and, last, the
-`{"ok": true, "device": ...}` line. Any failed phase raises and exits
-non-zero before the result lines. Without a CUDA card it exits non-zero at
-once. `tools/profile_torch_headline.py` takes its audio and options from here.
+time, one line per kernel check, one line per path (throughput, launch
+counts, the words call's peak memory, the seek loop's window count) with
+its held kernel inputs, then a
+JSON line with every kernel's numbers and, last, the `{"ok": true,
+"device": ...}` line. Any failed phase raises and exits non-zero before the
+result lines. Without a CUDA card it exits non-zero at once.
+`tools/profile_torch_headline.py` takes its audio and options from here.
 """
 
 import json
@@ -48,6 +58,15 @@ HEADLINE_OPTS = dict(language="en", temperature=0.0, sample_len=TOKENS, fp16=Tru
                      compression_ratio_threshold=None, no_speech_threshold=None,
                      kv_quant=True, weight_quant=True, self_kv_quant=True,
                      at_time_res=10)
+# the sequential transcribe: the same decode options, one window at a time
+SEQUENTIAL_S = 60
+SEQUENTIAL_OPTS = dict({k: v for k, v in HEADLINE_OPTS.items() if k != "max_batch"},
+                       word_timestamps=True, condition_on_previous_text=True)
+# DTW (K6) shapes of the words path: 4 windows' text rows (ragged) x 1500
+# frames per chunk, and the longest text a window can hold
+DTW_ROWS = (101, 87, 64, 33)
+DTW_FRAMES = 1500
+DTW_WORST = 448
 
 
 def card_line() -> str:
@@ -87,9 +106,120 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def dtw_check(cases) -> dict:
+    """K6 against its plain wavefront on each (x [G, N_max, M], n [G]) case,
+    bit for bit with float64 and with float32 sums; the largest difference
+    of a trace value over every compared pair; the kernel's, the plain
+    version's and the byte bound's mean time per call in float64 (the
+    path's type). Bytes: each valid cost row read once, the skewed int8
+    trace written once."""
+    from whisper_at_tpu_torch.ops import dtw
+
+    err, ms, plain_ms, bound_ms = 0.0, [], [], []
+    for x, n in cases:
+        for acc in (torch.float64, torch.float32):
+            out = dtw.dtw_trace(x, n, acc)
+            ref = dtw.dtw_trace_plain(x, n, acc)
+            torch.cuda.synchronize()
+            err = max(err, max_err(out, ref))
+            if not torch.equal(out, ref):
+                raise AssertionError(f"K6 {tuple(x.shape)} {acc}: trace differs from the "
+                                     f"plain version at {int((out != ref).sum())} cells")
+        g, n_max, m = x.shape
+        ms.append(time_ms(lambda: dtw.dtw_trace(x, n), 10))
+        plain_ms.append(time_ms(lambda: dtw.dtw_trace_plain(x, n), 1, 1))
+        nbytes = 4.0 * int(n.sum()) * m + g * (n_max + m + 1) * (n_max + 1) + 4.0 * g
+        bound_ms.append(bound(0.0, nbytes, PEAK_FP32_FLOPS)[0])
+    shapes = ", ".join(f"{list(x.shape)} n={n.tolist()}" for x, n in cases)
+    steps = [x.shape[1] + x.shape[2] - 1 for x, _ in cases]
+    return dict(err=err, ms=float(np.mean(ms)), plain_ms=float(np.mean(plain_ms)),
+                bound=(float(np.mean(bound_ms)), "bytes"),
+                tol=f"trace bitwise equal with float64 and float32 sums over {shapes}; "
+                    f"{steps} diagonal steps")
+
+
+def k1_compare(q, k, v, n_head):
+    """K1 against its plain version per element: one bf16 ulp (<= 2^-7 |x|)
+    plus 2^-10 absolute. Returns (max abs err, tolerance text)."""
+    from whisper_at_tpu_torch.ops import enc_attention
+
+    out = enc_attention.enc_attention(q, k, v, n_head)
+    ref = enc_attention.enc_attention_plain(q, k, v, n_head)
+    torch.cuda.synchronize()
+    diff = (out.float() - ref.float()).abs()
+    limit = 2 ** -10 + 2 ** -7 * ref.float().abs()
+    worst = float((diff / limit).max())
+    if not worst <= 1.0:
+        raise AssertionError(f"K1 {tuple(q.shape)}: |out - ref| exceeds 2^-10 + 2^-7 |ref| "
+                             f"by {worst:.3f}x")
+    return float(diff.max()), f"|out - ref| <= 2^-10 + 2^-7 |ref| per element, worst at " \
+                              f"{worst:.3f} of it"
+
+
+def k2_compare(*args):
+    """K2 against its plain version: 1e-3 + 2^-6 max |ref|."""
+    from whisper_at_tpu_torch.ops import enc_mlp
+
+    out = enc_mlp.enc_mlp(*args)
+    ref = enc_mlp.enc_mlp_plain(*args)
+    torch.cuda.synchronize()
+    err = max_err(out, ref)
+    tol = 1e-3 + 2 ** -6 * float(ref.float().abs().max())
+    check(f"K2 {tuple(args[0].shape)}", err, tol)
+    return err, f"{tol:.3e}"
+
+
+def k3_compare(xa, wk, wv, bv):
+    """K3 against its plain version: codes within 1 LSB on <= 1e-3 of the
+    entries, scales within 2^-7 relative; the error is that of the
+    dequantized K/V. Returns (err, tolerance text, the kernel's output)."""
+    from whisper_at_tpu_torch.ops import kv_quant
+
+    kern = kv_quant.project_quantize_kv(xa, wk, wv, bv)
+    plain = kv_quant.project_quantize_kv_plain(xa, wk, wv, bv)
+    torch.cuda.synchronize()
+    code_diff = torch.cat([(kern[i].int() - plain[i].int()).abs().flatten() for i in (0, 2)])
+    frac = float((code_diff > 0).float().mean())
+    if int(code_diff.max()) > 1 or frac > 1e-3:
+        raise AssertionError(f"K3 {tuple(xa.shape)}: codes differ by up to "
+                             f"{int(code_diff.max())} on {frac:.2e} of entries "
+                             f"(limit 1 LSB on 1e-3)")
+    s_rel = max(float(((kern[i] - plain[i]).abs() / plain[i].clamp_min(1e-30)).max())
+                for i in (1, 3))
+    if s_rel > 2 ** -7:
+        raise AssertionError(f"K3 {tuple(xa.shape)}: scales differ by rel {s_rel} > {2 ** -7}")
+    b, ta_pad, d = kern[0].shape
+    h = kern[1].shape[1]
+
+    def dequant(codes, scales):
+        return codes.float().view(b, ta_pad, h, d // h) * scales.transpose(1, 2)[..., None]
+
+    err = max(max_err(dequant(kern[i], kern[i + 1]), dequant(plain[i], plain[i + 1]))
+              for i in (0, 2))
+    return err, (f"codes within 1 LSB on <= 1e-3 of entries (got {frac:.1e}), "
+                 f"scales rel <= 2^-7 (got {s_rel:.1e})"), kern
+
+
+def k4_compare(q, kq, ks, vq, vs, bias, n_head):
+    """K4 against its plain version: 1e-4 + 1e-3 max |ref|."""
+    from whisper_at_tpu_torch.ops import cross_decode
+
+    out = cross_decode.cross_attention_int8(q, kq, ks, vq, vs, bias, n_head)
+    ref = cross_decode.cross_attention_int8_plain(q, kq, ks, vq, vs, bias, n_head)
+    torch.cuda.synchronize()
+    err = max_err(out, ref)
+    tol = 1e-4 + 1e-3 * float(ref.abs().max())
+    check(f"K4 {tuple(q.shape)}", err, tol)
+    return err, f"{tol:.3e}"
+
+
+COMPARE = dict(K1=k1_compare, K2=k2_compare, K3=lambda *a: k3_compare(*a)[:2],
+               K4=k4_compare)
+
+
 def kernel_checks(card: str) -> dict:
     """Each kernel against its plain version at the headline shapes."""
-    from whisper_at_tpu_torch.ops import cross_decode, enc_attention, enc_mlp, kv_quant
+    from whisper_at_tpu_torch.ops import cross_decode, dtw, enc_attention, enc_mlp, kv_quant
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -106,18 +236,7 @@ def kernel_checks(card: str) -> dict:
 
     # ---- K1 encoder attention: q, k, v [24, 1500, 1280] -------------------- #
     q, k, v = (randn(BATCH, T_ENC, D) for _ in range(3))
-    out = enc_attention.enc_attention(q, k, v, H)
-    ref = enc_attention.enc_attention_plain(q, k, v, H)
-    torch.cuda.synchronize()
-    # one bf16 ulp of each output element (ulp <= 2^-7 |x|) plus 2^-10 absolute
-    diff = (out.float() - ref.float()).abs()
-    limit = 2 ** -10 + 2 ** -7 * ref.float().abs()
-    worst = float((diff / limit).max())
-    err = float(diff.max())
-    if not worst <= 1.0:
-        raise AssertionError(f"K1: |out - ref| exceeds 2^-10 + 2^-7 |ref| by {worst:.3f}x")
-    tol = f"|out - ref| <= 2^-10 + 2^-7 |ref| per element, worst at {worst:.3f} of it"
-    del diff, limit
+    err, tol = k1_compare(q, k, v, H)
     qh, kh, vh = (x.view(BATCH, T_ENC, H, DH).transpose(1, 2) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     flops = 4.0 * BATCH * H * T_ENC * T_ENC * DH
@@ -128,7 +247,7 @@ def kernel_checks(card: str) -> dict:
         plain_ms=time_ms(lambda: enc_attention.enc_attention_plain(q, k, v, H), 3, 1),
         library_ms=time_ms(lambda: sdpa(qh, kh, vh), 10),
         bound=bound(flops, nbytes, PEAK_BF16_FLOPS))
-    del q, k, v, out, ref, qh, kh, vh
+    del q, k, v, qh, kh, vh
 
     # ---- K2 encoder MLP half-block: x [24, 1500, 1280], 4D = 5120 ---------- #
     f = 4 * D
@@ -138,12 +257,7 @@ def kernel_checks(card: str) -> dict:
     w1, b1 = uniform(f, D, bound_=D ** -0.5), uniform(f, bound_=D ** -0.5)
     w2, b2 = uniform(D, f, bound_=f ** -0.5), uniform(D, bound_=f ** -0.5)
     args = (x, ln_w, ln_b, w1, b1, w2, b2)
-    out = enc_mlp.enc_mlp(*args)
-    ref = enc_mlp.enc_mlp_plain(*args)
-    torch.cuda.synchronize()
-    err = max_err(out, ref)
-    tol = 1e-3 + 2 ** -6 * float(ref.float().abs().max())
-    check("K2", err, tol)
+    err, tol = k2_compare(*args)
     m = BATCH * T_ENC
     rows["K2"] = dict(
         module=enc_mlp, err=err, tol=tol,
@@ -153,35 +267,16 @@ def kernel_checks(card: str) -> dict:
         bound=bound(4.0 * m * D * f,
                     2.0 * (2 * m * D + 2 * D * f) + 4.0 * (3 * D + f),
                     PEAK_BF16_FLOPS))
-    del x, args, out, ref, w1, w2
+    del x, args, w1, w2
 
     # ---- K3 cross-KV projection + int8: xa [24, 1500, 1280] -------------- #
     xa = randn(BATCH, T_ENC, D)
     wk, wv = uniform(D, D, bound_=D ** -0.5), uniform(D, D, bound_=D ** -0.5)
     bv = uniform(D, bound_=D ** -0.5)
-    kern = kv_quant.project_quantize_kv(xa, wk, wv, bv)
-    plain = kv_quant.project_quantize_kv_plain(xa, wk, wv, bv)
-    torch.cuda.synchronize()
+    err, tol, kern = k3_compare(xa, wk, wv, bv)
     ta_pad = kv_quant.pad_ta(T_ENC)
-    code_diff = torch.cat([(kern[i].int() - plain[i].int()).abs().flatten() for i in (0, 2)])
-    frac = float((code_diff > 0).float().mean())
-    if int(code_diff.max()) > 1 or frac > 1e-3:
-        raise AssertionError(f"K3: codes differ by up to {int(code_diff.max())} "
-                             f"on {frac:.2e} of entries (limit 1 LSB on 1e-3)")
-    s_rel = max(float(((kern[i] - plain[i]).abs() / plain[i].clamp_min(1e-30)).max())
-                for i in (1, 3))
-    if s_rel > 2 ** -7:
-        raise AssertionError(f"K3: scales differ by rel {s_rel} > {2 ** -7}")
-
-    def dequant(codes, scales):
-        return codes.float().view(BATCH, ta_pad, H, DH) * scales.transpose(1, 2)[..., None]
-
-    err = max(max_err(dequant(kern[i], kern[i + 1]), dequant(plain[i], plain[i + 1]))
-              for i in (0, 2))
     rows["K3"] = dict(
-        module=kv_quant, err=err,
-        tol=f"codes within 1 LSB on <= 1e-3 of entries (got {frac:.1e}), "
-            f"scales rel <= 2^-7 (got {s_rel:.1e})",
+        module=kv_quant, err=err, tol=tol,
         ms=time_ms(lambda: kv_quant.project_quantize_kv(xa, wk, wv, bv, out=kern), 10),
         plain_ms=time_ms(lambda: kv_quant.project_quantize_kv_plain(xa, wk, wv, bv), 3, 1),
         library_ms=None,
@@ -196,14 +291,9 @@ def kernel_checks(card: str) -> dict:
     errs, tols = [], []
     for groups in (4, 1):  # the prefill bucket, then the per-token steps
         qd = randn(BATCH, H * groups, DH, scale=DH ** -0.5)
-        out = cross_decode.cross_attention_int8(qd, kq, ks, vq, vs, bias, H)
-        ref = cross_decode.cross_attention_int8_plain(qd, kq, ks, vq, vs, bias, H)
-        torch.cuda.synchronize()
-        e = max_err(out, ref)
-        tol = 1e-4 + 1e-3 * float(ref.abs().max())
-        check(f"K4 (G={groups})", e, tol)
+        e, tol = k4_compare(qd, kq, ks, vq, vs, bias, H)
         errs.append(e)
-        tols.append(f"G={groups}: err {e:.3e} <= {tol:.3e}")
+        tols.append(f"G={groups}: err {e:.3e} <= {tol}")
     # timed at G=1, the per-token step; the bound reads the Ta valid positions
     # of K/V and their scales (the masked pad columns need not be read)
     rows["K4"] = dict(
@@ -216,7 +306,19 @@ def kernel_checks(card: str) -> dict:
                     2 * BATCH * T_ENC * D + 2 * 4.0 * BATCH * H * T_ENC
                     + 4.0 * T_ENC + 2.0 * BATCH * H * DH + 4.0 * BATCH * H * DH,
                     PEAK_FP32_FLOPS))
-    del kern, plain, kq, ks, vq, vs, xa
+    del kern, kq, ks, vq, vs, xa
+
+    # ---- K6 DTW trace: ragged [4, 101, 1500], then [1, 448, 1500] ---------- #
+    cases = []
+    for lengths in (DTW_ROWS, (DTW_WORST,)):
+        x = torch.randn((len(lengths), max(lengths), DTW_FRAMES), generator=gen, device=dev)
+        cases.append((x, torch.tensor(lengths, dtype=torch.int32, device=dev)))
+    worst = dtw_check(cases[1:])
+    rows["K6"] = dict(module=dtw, library_ms=None, **dtw_check(cases[:1]))
+    rows["K6"]["err"] = max(rows["K6"]["err"], worst["err"])
+    rows["K6"]["tol"] += (f"; [1, {DTW_WORST}, {DTW_FRAMES}] takes {worst['ms']:.4f} ms "
+                          f"({DTW_WORST + DTW_FRAMES - 1} steps, bitwise equal too)")
+    del cases
 
     for name, r in rows.items():
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -236,44 +338,240 @@ def synth_audio(seconds: int, seed: int) -> np.ndarray:
     return (np.clip(a, -1.0, 1.0) * 32767.0).astype(np.int16)
 
 
-def transcribe_check(card: str) -> dict:
-    """The port's main path once at large-v1 full width; returns launch counts."""
-    import whisper_at_tpu_torch as wat
+def kernels_of(names) -> list:
+    from whisper_at_tpu_torch.ops import cross_decode, dtw, enc_attention, enc_mlp, kv_quant
+
+    modules = dict(K1=enc_attention, K2=enc_mlp, K3=kv_quant, K4=cross_decode, K6=dtw)
+    return [modules[n].KERNEL.name for n in names]
+
+
+HEADLINE_KERNELS = ("K1", "K2", "K3", "K4")
+WORDS_KERNELS = HEADLINE_KERNELS + ("K6",)
+
+
+class Recorder:
+    """Within `with Recorder():`, each kernel wrapper is replaced, at the
+    place the path calls it, by one that keeps a copy of its inputs and then
+    launches as before (the wrapper counts its launch once, as always):
+    every call of K6, and the first call of K1-K4 at each distinct set of
+    shapes. `inputs[kernel id]` lists the argument tuples."""
+
+    def __init__(self):
+        from whisper_at_tpu_torch.models import decoder, encoder
+        from whisper_at_tpu_torch.ops import dtw
+
+        self.sites = dict(K1=(encoder, "enc_attention"), K2=(encoder, "enc_mlp"),
+                          K3=(decoder, "project_quantize_kv"),
+                          K4=(decoder, "cross_attention_int8"), K6=(dtw, "dtw_trace"))
+        self.seen = {name: {} for name in self.sites}
+        self.originals = {}
+
+    @property
+    def inputs(self) -> dict:
+        return {name: list(seen.values()) for name, seen in self.seen.items()}
+
+    def _wrap(self, name, fn):
+        seen = self.seen[name]
+
+        def recording(*args, **kwargs):
+            key = len(seen) if name == "K6" else tuple(
+                tuple(a.shape) if torch.is_tensor(a) else a for a in args)
+            if key not in seen:
+                seen[key] = tuple(a.detach().clone() if torch.is_tensor(a) else a
+                                  for a in args)
+            return fn(*args, **kwargs)
+        return recording
+
+    def __enter__(self):
+        for name, (owner, attr) in self.sites.items():
+            self.originals[name] = getattr(owner, attr)
+            setattr(owner, attr, self._wrap(name, self.originals[name]))
+        return self
+
+    def __exit__(self, *exc):
+        for name, (owner, attr) in self.sites.items():
+            setattr(owner, attr, self.originals[name])
+
+
+def hold_path_inputs(card: str, label: str, inputs: dict):
+    """Every kernel against its plain version on the inputs a path gave it
+    (K1-K4 at each shape, K6 on every call). Returns K6's `dtw_check` dict,
+    or None when the path did not run K6."""
+    for name, calls in inputs.items():
+        if name == "K6" or not calls:
+            continue
+        for args in calls:
+            err, tol = COMPARE[name](*args)
+            shapes = [list(a.shape) for a in args if torch.is_tensor(a)][:1]
+            print(f"{label}: {name} on its input {shapes[0]}: max_abs_err={err:.3e} "
+                  f"(tol {tol}) [{card}]", flush=True)
+    if not inputs["K6"]:
+        return None
+    k6 = dtw_check([(x, n) for x, n, *_ in inputs["K6"]])
+    print(f"{label}: K6 on its {len(inputs['K6'])} inputs: max_abs_err={k6['err']:.1f} "
+          f"({k6['tol']}), kernel_ms={k6['ms']:.4f} plain_ms={k6['plain_ms']:.4f} "
+          f"bound_ms={k6['bound'][0]:.4f} (bytes), means per call [{card}]", flush=True)
+    return k6
+
+
+def run_counted(fn, kernel_ids):
+    """fn() with every launch count set to 0 just before and read just
+    after; fails when a kernel of the path was not launched. Returns
+    (result, seconds, counts)."""
     from whisper_at_tpu_torch.ops import cuda
 
-    model = wat.build_model(SIZE, device="cuda", dtype=torch.bfloat16, seed=SEED)
-    audio = synth_audio(BATCH * 30, SEED)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    wat.transcribe_batched(model, audio, **HEADLINE_OPTS)  # warm-up: allocator, library handles
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-
     cuda.reset_launch_counts()
     t0 = time.perf_counter()
-    result = wat.transcribe_batched(model, audio, **HEADLINE_OPTS)
+    result = fn()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = cuda.launch_counts()
+    missing = [name for name in kernels_of(kernel_ids) if counts[name] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on this path: {missing}")
+    return result, seconds, counts
 
+
+def check_segments(result, audio_len: int, words: bool) -> int:
+    """Tags finite and written, segments ordered; with words, word times
+    finite, ordered and inside their window, probabilities in [0, 1].
+    Returns the number of words."""
     tags = np.asarray(result["audio_tag"])
-    n_cells = -(-len(audio) // (16000 * 10))
+    n_cells = -(-audio_len // (16000 * 10))
     if tags.shape != (n_cells, 527) or not np.isfinite(tags).all():
         raise AssertionError(f"audio_tag has shape {tags.shape} or non-finite values")
     if np.abs(tags).sum(axis=1).min() <= 0:
         raise AssertionError("a tag cell was never written")
+    n_words = 0
     for seg in result["segments"]:
         if not 0 <= seg["start"] <= seg["end"]:
             raise AssertionError(f"segment times out of order: {seg}")
         if not np.isfinite(seg["avg_logprob"]):
             raise AssertionError(f"non-finite avg_logprob: {seg}")
-    missing = [name for name, n in counts.items() if n <= 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
+        if not words:
+            continue
+        lo, hi = seg["seek"] / 100, seg["seek"] / 100 + 30
+        times = [(w["start"], w["end"]) for w in seg["words"]]
+        flat = [t for pair in times for t in pair]
+        if not (np.isfinite(flat).all() and flat == sorted(flat)
+                and all(lo <= t <= hi for t in flat)):
+            raise AssertionError(f"word times not finite, ordered and in [{lo}, {hi}]: "
+                                 f"{times}")
+        if not all(0 <= w["probability"] <= 1 for w in seg["words"]):
+            raise AssertionError(f"word probability outside [0, 1]: {seg['words']}")
+        n_words += len(seg["words"])
+    if words and n_words == 0:
+        raise AssertionError("no segment carries words")
+    return n_words
+
+
+def transcribe_check(card: str, model) -> dict:
+    """The headline call at large-v1 full width: a warm-up call whose kernel
+    inputs are recorded and held against the plain versions, then the
+    counted call. Returns its launch counts."""
+    import whisper_at_tpu_torch as wat
+
+    audio = synth_audio(BATCH * 30, SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with Recorder() as rec:  # warm-up: allocator, library handles
+        wat.transcribe_batched(model, audio, **HEADLINE_OPTS)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    hold_path_inputs(card, "headline call", rec.inputs)
+    del rec
+
+    torch.cuda.reset_peak_memory_stats()
+    result, seconds, counts = run_counted(
+        lambda: wat.transcribe_batched(model, audio, **HEADLINE_OPTS), HEADLINE_KERNELS)
+    peak = torch.cuda.max_memory_allocated()
+    check_segments(result, len(audio), words=False)
     print(f"transcribe_batched {SIZE} batch {BATCH}: {len(audio) / 16000:.0f} s audio "
           f"in {seconds:.3f} s = {len(audio) / 16000 / seconds:.2f} audio-s/s "
           f"(second call; the first took {warm_s:.3f} s), {len(result['segments'])} segments, "
-          f"tags {tags.shape}, launches {counts} [{card}]", flush=True)
+          f"tags {np.asarray(result['audio_tag']).shape}, peak memory {peak / 2**30:.2f} GiB, "
+          f"launches {counts} [{card}]", flush=True)
+    return counts
+
+
+def words_opts(model) -> dict:
+    """The words call's options: the headline's with word timestamps, and
+    with timestamp tokens off and EOT suppressed, so every window decodes
+    TOKENS text tokens, the length of real speech's windows (about 50-100).
+    Random weights would otherwise end a window's text after a few tokens,
+    and the alignment would run on rows far shorter than users send."""
+    from whisper_at_tpu_torch.tokenizer import get_tokenizer
+
+    tok = get_tokenizer(model.is_multilingual)
+    suppress = [-1, tok.eot, *range(tok.timestamp_begin, model.dims.n_vocab)]
+    return dict(HEADLINE_OPTS, word_timestamps=True, without_timestamps=True,
+                suppress_tokens=suppress)
+
+
+def words_check(card: str, model):
+    """`transcribe_batched` with word timestamps over the headline's audio
+    (`words_opts`; default alignment mask: every head of the last half of
+    the layers): a warm-up call whose kernel inputs are recorded and held
+    against the plain versions, then the counted call (the greedy decode
+    makes its inputs the same). Returns the launch counts and K6's
+    `dtw_check` dict on the recorded inputs."""
+    import whisper_at_tpu_torch as wat
+
+    audio = synth_audio(BATCH * 30, SEED)
+    opts = words_opts(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with Recorder() as rec:
+        wat.transcribe_batched(model, audio, **opts)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    k6 = hold_path_inputs(card, "words call", rec.inputs)
+    del rec
+
+    torch.cuda.reset_peak_memory_stats()
+    result, seconds, counts = run_counted(
+        lambda: wat.transcribe_batched(model, audio, **opts), WORDS_KERNELS)
+    peak = torch.cuda.max_memory_allocated()
+    n_words = check_segments(result, len(audio), words=True)
+    eot = opts["suppress_tokens"][1]
+    n_text = [len([t for t in seg["tokens"] if t < eot]) for seg in result["segments"]]
+    print(f"transcribe_batched word_timestamps {SIZE} batch {BATCH}, "
+          f"{int(model.alignment_heads.sum())} alignment heads: {len(audio) / 16000:.0f} s "
+          f"audio in {seconds:.3f} s = {len(audio) / 16000 / seconds:.2f} audio-s/s (second "
+          f"call; the first took {warm_s:.3f} s), {len(result['segments'])} segments of "
+          f"{min(n_text)}-{max(n_text)} tokens, {n_words} words, peak memory "
+          f"{peak / 2**30:.2f} GiB, launches {counts} [{card}]", flush=True)
+    return counts, k6
+
+
+def sequential_check(card: str, model) -> dict:
+    """The sequential transcribe with word timestamps over 60 s, the mask
+    set from the port's copy of large-v1's alignment heads. There is one
+    call; its kernel inputs are recorded in it (copies of a few MB) and
+    held against the plain versions after it."""
+    import whisper_at_tpu_torch as wat
+    from whisper_at_tpu_torch.registry import _ALIGNMENT_HEADS
+
+    audio = synth_audio(SEQUENTIAL_S, SEED)
+    default_heads = model.alignment_heads
+    model.set_alignment_heads(_ALIGNMENT_HEADS[SIZE])
+    n_heads = int(model.alignment_heads.sum())
+    try:
+        with Recorder() as rec:
+            result, seconds, counts = run_counted(
+                lambda: wat.transcribe(model, audio, **SEQUENTIAL_OPTS), WORDS_KERNELS)
+    finally:
+        model.alignment_heads = default_heads
+    n_words = check_segments(result, len(audio), words=True)
+    # the gate is off, so every decoded window leaves at least one segment
+    windows = len({seg["seek"] for seg in result["segments"]})
+    print(f"transcribe (sequential) word_timestamps {SIZE}, {n_heads} alignment heads "
+          f"(registry): {len(audio) / 16000:.0f} s audio in {seconds:.3f} s "
+          f"(one call, cold for the seek loop's shapes), {windows} windows decoded, "
+          f"{len(result['segments'])} segments, {n_words} words, launches {counts} [{card}]",
+          flush=True)
+    hold_path_inputs(card, "sequential call", rec.inputs)
     return counts
 
 
@@ -287,6 +585,7 @@ def main() -> int:
 
     from whisper_at_tpu_torch.ops import cuda
 
+    t_start = time.perf_counter()
     card = card_line()
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
@@ -299,14 +598,24 @@ def main() -> int:
         print(f"ptxas {kernel.name}: {' | '.join(regs)}", flush=True)
 
     rows = kernel_checks(card)
-    counts = transcribe_check(card)
+    import whisper_at_tpu_torch as wat
+
+    model = wat.build_model(SIZE, device="cuda", dtype=torch.bfloat16, seed=SEED)
+    counts = transcribe_check(card, model)
+    words_counts, words_k6 = words_check(card, model)
+    # K6's numbers in the kernels line come from the words call's own inputs
+    words_k6["err"] = max(words_k6["err"], rows["K6"]["err"])
+    rows["K6"].update(words_k6)
+    sequential_check(card, model)
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to here [{card}]",
+          flush=True)
 
     line = {"kernels": [
         {"name": name,
          "route": "cuda",
          "source": f"whisper_at_tpu_torch/csrc/{r['module'].KERNEL.source}",
          "replaces": r["module"].KERNEL.replaces,
-         "launches": counts[r["module"].KERNEL.name],
+         "launches": (words_counts if name == "K6" else counts)[r["module"].KERNEL.name],
          "max_abs_err": r["err"],
          "ms": r["ms"],
          "plain_ms": r["plain_ms"],

@@ -4,7 +4,7 @@ Every test here needs an NVIDIA GPU and the CUDA toolkit (nvcc); without a
 card they skip. Run them on the card with `pytest -m cuda
 tests/test_torch_cuda.py`. `chip_smoke.py` makes the same comparisons at
 the full headline shapes. Tolerances are bf16-level: the kernels and the
-plain versions round at different points.
+plain versions round at different points; the DTW trace (K6) is exact.
 """
 
 import numpy as np
@@ -76,7 +76,29 @@ def test_kv_quant_and_cross_decode_kernels(dev, groups):
     _close(out, ref, rel=1e-3)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_dtw_kernel(dev, dtype):
+    """K6 against its plain version, bit for bit: a ragged batch with ties
+    (integer costs) and NaN past each row's length, then one long row."""
+    from whisper_at_tpu_torch.ops.dtw import dtw_trace, dtw_trace_plain
+
+    rng = np.random.default_rng(4)
+    x = rng.integers(-2, 3, (3, 37, 90)).astype(np.float32)
+    lengths = [37, 5, 20]
+    for g, n in enumerate(lengths):
+        x[g, n:] = np.nan
+    for x, lengths in ((x, lengths),
+                       (rng.standard_normal((1, 300, 700)).astype(np.float32), [300])):
+        xt = torch.from_numpy(x).to(dev)
+        n = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        out = dtw_trace(xt, n, dtype)
+        ref = dtw_trace_plain(xt, n, dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref)
+
+
 def test_transcribe_batched_runs_through_every_kernel(dev):
+    """With word timestamps the call reaches K1-K4 and K6."""
     import whisper_at_tpu_torch as wat
     from whisper_at_tpu_torch.ops import cuda
 
@@ -87,6 +109,7 @@ def test_transcribe_batched_runs_through_every_kernel(dev):
                                     sample_len=8, kv_quant=True, weight_quant=True,
                                     self_kv_quant=True, logprob_threshold=None,
                                     compression_ratio_threshold=None,
-                                    no_speech_threshold=None)
-    assert all(n > 0 for n in cuda.launch_counts().values())
+                                    no_speech_threshold=None, word_timestamps=True)
+    assert all(n > 0 for n in cuda.launch_counts().values()), cuda.launch_counts()
     assert result["audio_tag"].shape == (4, 527) and np.isfinite(result["audio_tag"]).all()
+    assert any(seg["words"] for seg in result["segments"])

@@ -37,7 +37,9 @@ SAMPLES = [
 
 def test_import_loads_no_jax():
     code = ("import sys, whisper_at_tpu_torch, whisper_at_tpu_torch.transcribe, "
-            "whisper_at_tpu_torch.convert, whisper_at_tpu_torch.ops; "
+            "whisper_at_tpu_torch.convert, whisper_at_tpu_torch.ops, "
+            "whisper_at_tpu_torch.timing, whisper_at_tpu_torch.registry, "
+            "whisper_at_tpu_torch.ops.dtw, whisper_at_tpu_torch.ops.median; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
             "'whisper_at_tpu')]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -82,7 +84,6 @@ def test_load_model_reads_a_local_reference_checkpoint(tmp_path):
     (dict(temperature=(0.5,), best_of=3), "best_of"),
     (dict(kv_bits=4, kv_quant=True), "8-bit"),
     (dict(weight_bits=4, weight_quant=True), "8-bit"),
-    (dict(word_timestamps=True), "word"),
     (dict(mesh=object()), "mesh"),
 ])
 def test_unported_options_raise(kwargs, what):
@@ -94,11 +95,10 @@ def test_unported_options_raise(kwargs, what):
 
 
 def test_unported_entry_points_raise():
-    from whisper_at_tpu_torch.transcribe import transcribe, transcribe_many
+    from whisper_at_tpu_torch.transcribe import transcribe_many
 
-    for fn in (transcribe, transcribe_many):
-        with pytest.raises(NotImplementedError):
-            fn(None, None)
+    with pytest.raises(NotImplementedError):
+        transcribe_many(None, None)
 
 
 @pytest.mark.parametrize("text", SAMPLES)

@@ -1,6 +1,6 @@
 """Where the time goes in the port's headline workload, on the card.
 
-    python3 tools/profile_torch_headline.py [--out build/profile_torch_headline.json]
+    python3 tools/profile_torch_headline.py [--words] [--out build/profile_torch_headline.json]
 
 Builds large-v1 (bf16, random weights from a seeded generator) and runs
 `transcribe_batched` over chip_smoke.py's synthesized audio with
@@ -13,7 +13,14 @@ chip_smoke.py's headline options (`HEADLINE_OPTS`, `synth_audio`):
    `precompute_cross_kv` with K3, `greedy_sample_loop` with K4,
    `Whisper.at_forward`) are wrapped so that each call synchronizes before
    and after and adds its wall time to its stage; the call itself is the
-   real path. The call's time minus the stages is host work;
+   real path. The call's time minus the stages is host work. With
+   `--words` the call takes chip_smoke.py's words options (`words_opts`:
+   word timestamps, every window decoding full-length text) and the
+   word-timing stages
+   are timed the same way: the alignment forward
+   (`decoder_forward_with_qk`), the token probabilities, the weight chain
+   (`_process_qk_weights`), K6 (`ops.dtw.dtw_trace`), the host backtrace
+   and the word carving (`_alignment_from_path`, `_apply_alignment`);
 3. one call under `torch.profiler`: the device's busy time (the union of
    kernel intervals) and its idle share of that same profiled call, and
    the kernels that take the most device time.
@@ -23,6 +30,7 @@ Prints one JSON object (also written to --out). Needs one NVIDIA GPU.
 
 import argparse
 import functools
+import importlib
 import json
 import os
 import subprocess
@@ -33,7 +41,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import BATCH, HEADLINE_OPTS, SEED, SIZE, synth_audio  # noqa: E402
+from chip_smoke import BATCH, HEADLINE_OPTS, SEED, SIZE, synth_audio, words_opts  # noqa: E402
 
 
 def timed(fn):
@@ -59,19 +67,34 @@ def busy_seconds(intervals) -> float:
     return total * 1e-6
 
 
-def stage_times(call) -> dict:
-    """Run call() once with the path's stage functions wrapped by timers."""
-    from whisper_at_tpu_torch import decoding, transcribe
+def stage_hooks(words: bool) -> list:
+    """(owner, function name, stage) of every function timed as a stage."""
+    from whisper_at_tpu_torch import decoding, timing
     from whisper_at_tpu_torch.models.whisper import Whisper
+    from whisper_at_tpu_torch.ops import dtw
 
-    stages = {"mel_s": 0.0, "encoder_s": 0.0, "cross_kv_s": 0.0, "decode_s": 0.0,
-              "tags_s": 0.0}
-    steps = []
+    # the module, not the package's `transcribe` function of the same name
+    transcribe = importlib.import_module("whisper_at_tpu_torch.transcribe")
     hooks = [(transcribe, "log_mel_spectrogram", "mel_s"),
              (Whisper, "embed_audio", "encoder_s"),
              (decoding, "precompute_cross_kv", "cross_kv_s"),
              (decoding, "greedy_sample_loop", "decode_s"),
              (Whisper, "at_forward", "tags_s")]
+    if words:
+        hooks += [(timing, "decoder_forward_with_qk", "align_forward_s"),
+                  (timing, "_token_probs_from_logits", "token_probs_s"),
+                  (timing, "_process_qk_weights", "weight_chain_s"),
+                  (dtw, "dtw_trace", "dtw_kernel_s"),
+                  (dtw, "backtrace", "backtrace_s"),
+                  (timing, "_alignment_from_path", "carving_s"),
+                  (timing, "_apply_alignment", "carving_s")]
+    return hooks
+
+
+def stage_times(call, hooks) -> dict:
+    """Run call() once with the path's stage functions wrapped by timers."""
+    stages = {key: 0.0 for _, _, key in hooks}
+    steps = []
 
     def wrap(fn, key):
         @functools.wraps(fn)
@@ -91,10 +114,10 @@ def stage_times(call) -> dict:
     finally:
         for owner, name, fn in originals:
             setattr(owner, name, fn)
+    stage_keys = list(stages)
     stages["decode_steps"] = sum(steps)
     stages["decode_ms_per_step"] = stages["decode_s"] / max(sum(steps), 1) * 1e3
-    stages["rest_s"] = call_s - sum(stages[k] for k in
-                                    ("mel_s", "encoder_s", "cross_kv_s", "decode_s", "tags_s"))
+    stages["rest_s"] = call_s - sum(stages[k] for k in stage_keys)
     stages["call_s"] = call_s
     return stages
 
@@ -102,6 +125,8 @@ def stage_times(call) -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", default="build/profile_torch_headline.json")
+    parser.add_argument("--words", action="store_true",
+                        help="profile the call with word_timestamps=True")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -113,12 +138,16 @@ def main(argv=None) -> int:
     model = wat.build_model(SIZE, device="cuda", dtype=torch.bfloat16, seed=SEED)
     audio = synth_audio(BATCH * 30, SEED)
 
+    opts = words_opts(model) if args.words else HEADLINE_OPTS
+
     def call():
-        return wat.transcribe_batched(model, audio, **HEADLINE_OPTS)
+        return wat.transcribe_batched(model, audio, **opts)
 
     _, warm_s = timed(call)
     call_s = [timed(call)[1] for _ in range(2)]
-    stages = stage_times(call)
+    torch.cuda.reset_peak_memory_stats()
+    stages = stage_times(call, stage_hooks(args.words))
+    peak = torch.cuda.max_memory_allocated()
     print(json.dumps({"call_s": call_s, "stages": stages}), flush=True)
 
     from torch.profiler import ProfilerActivity, profile
@@ -136,6 +165,7 @@ def main(argv=None) -> int:
     audio_s = len(audio) / 16000
     report = {
         "card": torch.cuda.get_device_name(0), "power_limit": power, "audio_s": audio_s,
+        "word_timestamps": args.words, "peak_memory_bytes_stage_call": peak,
         "first_call_s": warm_s, "call_s": call_s,
         "audio_s_per_s": [audio_s / s for s in call_s], "stages": stages,
         "profiled_call_s": prof_s, "device_busy_s": busy,

@@ -17,13 +17,13 @@ from .audio import load_audio, log_mel_spectrogram, pad_or_trim
 from .decoding import DecodingOptions, DecodingResult, decode, detect_language
 from .models.dims import ModelDimensions, dims_for
 from .models.whisper import Whisper, build_model
-from .transcribe import transcribe_batched
+from .transcribe import transcribe, transcribe_batched
 from .utils import resolve_device
 
 __all__ = [
     "DecodingOptions", "DecodingResult", "ModelDimensions", "Whisper", "build_model",
     "decode", "detect_language", "dims_for", "load_audio", "load_model",
-    "log_mel_spectrogram", "pad_or_trim", "parse_at_label", "transcribe_batched",
+    "log_mel_spectrogram", "pad_or_trim", "parse_at_label", "transcribe", "transcribe_batched",
 ]
 
 

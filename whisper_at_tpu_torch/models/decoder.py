@@ -9,6 +9,11 @@ On the decode path the cross-attention K/V of every layer is precomputed
 once per batch, int8-quantized by K3 (`ops/kv_quant.py`), and read each
 step by K4 (`ops/cross_decode.py`) when heads x query rows <= 256, else by
 an einsum over the same layout.
+
+The full (non-incremental) forward, `decoder_forward_with_qk`, runs over
+whole token rows on the plain decoder weights: word timing reads the
+cross-attention logits of the alignment heads it keeps, `Whisper.logits`
+(language detection) reads its logits alone.
 """
 
 from dataclasses import dataclass
@@ -23,6 +28,7 @@ from .layers import (
     LayerNorm,
     Linear,
     ResidualAttentionBlock,
+    attention,
     gelu,
     normal_,
     quantize_linear,
@@ -282,14 +288,42 @@ def project_logits(params: Parts, hidden: torch.Tensor) -> torch.Tensor:
     return torch.matmul(hidden.float(), emb.t())
 
 
-def logits_full(params: Parts, tokens: torch.Tensor, audio_features: torch.Tensor,
-                n_head: int, compute_dtype) -> torch.Tensor:
-    """Non-incremental forward (plain cross K/V, plain cache) -> [B, S, V] fp32."""
+def decoder_forward_with_qk(decoder: TextDecoder, tokens: torch.Tensor, xa: torch.Tensor,
+                            head_mask, n_head: int, compute_dtype=torch.float32):
+    """Full causal forward over tokens [B, S] on the plain (unfused,
+    unquantized) decoder weights, cross-attending to xa [B, F, D], that also
+    keeps the pre-softmax cross-attention logits (scaled by Dh^-0.5) of the
+    heads that head_mask (bool [L, H]) selects.
+
+    Returns (logits [B, S, V] fp32, qk [B, n_sel, S, F]), qk in the forward's
+    precision class (fp32 for fp32, bf16 for bf16), its rows in (layer,
+    head) order. Rows are independent under the causal mask, so a
+    right-padded row gives its valid positions' exact-length values."""
+    head_mask = torch.as_tensor(head_mask, dtype=torch.bool)
     b, s = tokens.shape
-    cross = precompute_cross_kv(params, audio_features, n_head, compute_dtype)
-    d = audio_features.shape[-1]
-    cache = init_cache(len(params.blocks), b, s, d, compute_dtype, n_head,
-                       device=tokens.device)
-    hidden = decoder_forward(params, tokens, cross, cache, 0, 0, n_head, compute_dtype)
-    return project_logits(params, hidden)
+    dev = tokens.device
+    x = (decoder.token_embedding.weight[tokens]
+         + decoder.positional_embedding[:s]).to(compute_dtype)
+    causal = torch.full((s, s), NEG_INF, device=dev).triu(1)
+    xa = xa.to(compute_dtype)
+    buf_dtype = torch.float32 if compute_dtype == torch.float32 else torch.bfloat16
+    qk_sel = torch.empty((b, int(head_mask.sum()), s, xa.shape[1]), dtype=buf_dtype,
+                         device=dev)
+    slot = 0
+    for i, blk in enumerate(decoder.blocks):
+        h = blk.attn_ln(x)
+        x = x + blk.attn.out(attention(blk.attn.query(h), blk.attn.key(h),
+                                       blk.attn.value(h), n_head, mask=causal))
+        q = _split_heads(blk.cross_attn.query(blk.cross_attn_ln(x)), n_head)
+        kh = _split_heads(blk.cross_attn.key(xa), n_head)
+        vh = _split_heads(blk.cross_attn.value(xa), n_head)
+        qk = torch.matmul(q.float(), kh.float().transpose(-1, -2)) * (q.shape[-1] ** -0.5)
+        attn = torch.matmul(torch.softmax(qk, dim=-1).to(compute_dtype), vh)
+        x = x + blk.cross_attn.out(_merge_heads(attn))
+        heads = torch.nonzero(head_mask[i]).flatten().tolist()
+        if heads:
+            qk_sel[:, slot:slot + len(heads)] = qk[:, heads].to(buf_dtype)
+            slot += len(heads)
+        x = x + blk.mlp[2](gelu(blk.mlp[0](blk.mlp_ln(x))))
+    return project_logits(decoder, decoder.ln(x)), qk_sel
 

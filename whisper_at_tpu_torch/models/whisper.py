@@ -6,8 +6,11 @@ the reference checkpoints, so a reference state dict loads directly (see
 package's parameter tree into the same state dict.
 """
 
+import base64
+import gzip
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -16,8 +19,8 @@ from .at_head import ATHead, at_head_apply, at_window_geometry
 from .decoder import (
     Parts,
     TextDecoder,
+    decoder_forward_with_qk,
     fuse_decoder_blocks,
-    logits_full,
     quantize_decoder_blocks,
 )
 from .dims import MULTILINGUAL_VOCAB, ModelDimensions, dims_for
@@ -25,8 +28,23 @@ from .encoder import AudioEncoder, encoder_apply
 from .layers import reset_random_
 
 
+def default_alignment_heads(dims: ModelDimensions) -> np.ndarray:
+    """Every head of the last half of the decoder layers, as bool [L, H]."""
+    heads = np.zeros((dims.n_text_layer, dims.n_text_head), dtype=bool)
+    heads[dims.n_text_layer // 2:] = True
+    return heads
+
+
+def decode_alignment_heads(dump: bytes, dims: ModelDimensions) -> np.ndarray:
+    """A base85 + gzip alignment-head mask (`registry._ALIGNMENT_HEADS`) as
+    bool [L, H]; raises ValueError when it does not fit `dims`."""
+    array = np.frombuffer(gzip.decompress(base64.b85decode(dump)), dtype=bool).copy()
+    return array.reshape(dims.n_text_layer, dims.n_text_head)
+
+
 class Whisper(nn.Module):
-    """Whisper backbone + TL-TR tagging head."""
+    """Whisper backbone + TL-TR tagging head. `alignment_heads` (bool
+    [L, H]) marks the cross-attention heads word timing reads."""
 
     def __init__(self, dims: ModelDimensions, at_low_compute: bool = False,
                  device=None, dtype=torch.float32):
@@ -38,6 +56,7 @@ class Whisper(nn.Module):
         self.at_model = ATHead(dims.n_audio_state, self.at_mode, device=device, dtype=dtype)
         self.requires_grad_(False)
         self._decode_params = {}
+        self.alignment_heads = default_alignment_heads(dims)
 
     @property
     def device(self) -> torch.device:
@@ -51,6 +70,9 @@ class Whisper(nn.Module):
     def compute_dtype(fp16: bool = True):
         """Half precision is bfloat16."""
         return torch.bfloat16 if fp16 else torch.float32
+
+    def set_alignment_heads(self, dump: bytes) -> None:
+        self.alignment_heads = decode_alignment_heads(dump, self.dims)
 
     def reset_random(self, gen: torch.Generator) -> None:
         self.encoder.reset_random(gen)
@@ -93,8 +115,9 @@ class Whisper(nn.Module):
     def logits(self, tokens: torch.Tensor, audio_features: torch.Tensor,
                fp16: bool = True) -> torch.Tensor:
         """Full (non-incremental) decoder forward -> fp32 logits [B, S, V]."""
-        return logits_full(self.decoder_params_decode(False), tokens, audio_features,
-                           self.dims.n_text_head, self.compute_dtype(fp16))
+        no_heads = np.zeros_like(self.alignment_heads)
+        return decoder_forward_with_qk(self.decoder, tokens, audio_features, no_heads,
+                                       self.dims.n_text_head, self.compute_dtype(fp16))[0]
 
 
 def build_model(name: str, device="cuda", dtype=torch.float32, seed: int = 0,

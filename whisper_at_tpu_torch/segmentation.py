@@ -1,4 +1,4 @@
-"""The per-window result core of the batched transcription path.
+"""The per-window result core of the transcription paths.
 
 Counterpart of `whisper_at_tpu/segmentation.py` (framework-free; this
 package keeps its own copy):
@@ -9,6 +9,7 @@ package keeps its own copy):
   parse_window    timestamp-token slicing of one window's tokens into
                   (start, end, tokens) pieces
   segment_record  the public per-segment result dict
+  clear_degenerate  blanks empty segments of the sequential path
 """
 
 import math
@@ -225,3 +226,13 @@ def segment_record(
         "compression_ratio": result.compression_ratio,
         "no_speech_prob": result.no_speech_prob,
     }
+
+
+def clear_degenerate(segments: List[dict]) -> None:
+    """Blank instantaneous or empty segments in place: the record stays (the
+    sequential path numbers it), its text, tokens and words go."""
+    for seg in segments:
+        if seg["start"] == seg["end"] or seg["text"].strip() == "":
+            seg["text"] = ""
+            seg["tokens"] = []
+            seg["words"] = []

@@ -11,6 +11,7 @@ which ships beside this package.
 """
 
 import os
+import string
 from functools import cached_property, lru_cache
 from typing import List, Optional, Sequence, Tuple
 
@@ -106,6 +107,48 @@ class Tokenizer:
                 if music or len(ids) == 1:
                     found.add(ids[0])
         return tuple(sorted(found))
+
+    def split_to_word_tokens(self, tokens: List[int]) -> Tuple[List[str], List[List[int]]]:
+        """(words, tokens of each word). Scripts written without spaces split
+        at code-point boundaries, the others at spaces and punctuation."""
+        if self.language in {"zh", "ja", "th", "lo", "my"}:
+            return self.split_tokens_on_unicode(tokens)
+        return self.split_tokens_on_spaces(tokens)
+
+    def split_tokens_on_unicode(self, tokens: List[int]):
+        """Cut after each token that completes a code point: a token whose
+        decoded text ends in U+FFFD that the full text does not have there
+        is the first byte of a character spread over several tokens."""
+        decoded_full = self.decode_with_timestamps(tokens)
+        replacement = "\ufffd"
+        words, word_tokens, current = [], [], []
+        offset = 0
+        for token in tokens:
+            current.append(token)
+            decoded = self.decode_with_timestamps(current)
+            if (replacement not in decoded
+                    or decoded_full[offset + decoded.index(replacement)] == replacement):
+                words.append(decoded)
+                word_tokens.append(current)
+                current = []
+                offset += len(decoded)
+        return words, word_tokens
+
+    def split_tokens_on_spaces(self, tokens: List[int]):
+        """Join code-point pieces into words: a new word starts at a special
+        token, a leading space or a punctuation mark."""
+        words, word_tokens = [], []
+        for subword, sub_tokens in zip(*self.split_tokens_on_unicode(tokens)):
+            special = sub_tokens[0] >= self.eot
+            with_space = subword.startswith(" ")
+            punctuation = subword.strip() in string.punctuation
+            if special or with_space or punctuation or not words:
+                words.append(subword)
+                word_tokens.append(sub_tokens)
+            else:
+                words[-1] += subword
+                word_tokens[-1].extend(sub_tokens)
+        return words, word_tokens
 
 
 @lru_cache(maxsize=None)

@@ -1,30 +1,60 @@
-"""Batched long-audio transcription and tagging: `transcribe_batched`.
+"""Long-audio transcription and tagging: `transcribe_batched` and the
+sequential `transcribe`.
 
-Counterpart of `whisper_at_tpu/transcribe.py::transcribe_batched`. Every
-30 s window of the recording rides the batch axis: one mel pass, one
-encoder + TL-TR pass and one batched greedy decode per chunk of up to
-`max_batch` windows; the temperature ladder re-decodes only the windows
-the quality gate rejects. Windows advance at a fixed 30 s stride and no
-text is carried from one window to the next (the
-condition_on_previous_text=False mode).
+Counterpart of `whisper_at_tpu/transcribe.py`:
 
-Not ported yet, and refused with NotImplementedError: word timestamps,
-a device mesh, the sequential `transcribe` and `transcribe_many`.
+  transcribe_batched  every 30 s window of the recording rides the batch
+                      axis: one mel pass, one encoder + TL-TR pass and one
+                      batched greedy decode per chunk of up to `max_batch`
+                      windows; the temperature ladder re-decodes only the
+                      windows the quality gate rejects. Windows advance at a
+                      fixed 30 s stride and no text is carried from one
+                      window to the next.
+  transcribe          the reference's seek loop: one window at a time, the
+                      seek moved by the decoded timestamps (and by the last
+                      aligned word with word timestamps), the previous text
+                      threaded into the next window's prompt.
+
+Both attach word timestamps on request (`timing.py`). Not ported yet, and
+refused with NotImplementedError: a device mesh and `transcribe_many`.
 """
 
+import warnings
 from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from .audio import HOP_LENGTH, N_FRAMES, N_SAMPLES, SAMPLE_RATE, log_mel_spectrogram, pad_or_trim
-from .decoding import DecodingOptions, DecodingResult, DecodingTask, detect_language
+from .audio import (
+    FRAMES_PER_SECOND,
+    HOP_LENGTH,
+    N_FRAMES,
+    N_SAMPLES,
+    SAMPLE_RATE,
+    log_mel_spectrogram,
+    pad_or_trim,
+)
+from .decoding import DecodingOptions, DecodingResult, DecodingTask, decode, detect_language
 from .languages import LANGUAGES
-from .segmentation import QualityGate, TagGrid, parse_window, segment_record, temperature_schedule
+from .segmentation import (
+    QualityGate,
+    TagGrid,
+    clear_degenerate,
+    parse_window,
+    segment_record,
+    temperature_schedule,
+)
+from .timing import (
+    APPEND_PUNCTUATIONS,
+    PREPEND_PUNCTUATIONS,
+    add_word_timestamps,
+    add_word_timestamps_many,
+)
 from .tokenizer import get_tokenizer
 from .utils import exact_div, format_timestamp, make_safe
 
 DEFAULT_MAX_BATCH = 24  # 30 s windows per device batch
+ALIGN_BATCH = 8  # windows per add_word_timestamps_many call of the batched path
 
 
 def print_segment(seg: dict) -> None:
@@ -120,11 +150,13 @@ def _stitch_tags_dispatch(model, entries, at_time_res: float, max_batch: int):
     return commit
 
 
-def _assemble_windows(results, content_frames: int, tokenizer, gate: QualityGate,
-                      input_stride: int, time_precision: float, verbose):
-    """Window results at a fixed 30 s stride -> (tokens, segments)."""
+def _assemble_windows(model, results, content_frames: int, tokenizer, gate: QualityGate,
+                      input_stride: int, time_precision: float, word_timestamps: bool,
+                      prepend_punctuations: str, append_punctuations: str, verbose):
+    """Window results at a fixed 30 s stride -> (tokens, segments), with
+    word timings attached ALIGN_BATCH windows at a time when asked."""
     all_tokens: List[int] = []
-    all_segments: List[dict] = []
+    per_window: List[Tuple[List[dict], int, int]] = []  # (segments, window, size)
     for w, result in enumerate(results):
         seek = w * N_FRAMES
         if seek >= content_frames:
@@ -137,14 +169,32 @@ def _assemble_windows(results, content_frames: int, tokenizer, gate: QualityGate
             time_offset=float(seek * HOP_LENGTH / SAMPLE_RATE), segment_size=size,
             segment_duration=size * HOP_LENGTH / SAMPLE_RATE, input_stride=input_stride,
             time_precision=time_precision)
+        window_segments = []
         for start, end, toks in parse.pieces:
             seg = segment_record(seek=seek, start=start, end=end, tokens=toks,
                                  result=result, eot=tokenizer.eot, tokenizer=tokenizer)
             if seg["start"] == seg["end"] or not seg["text"].strip():
                 continue
+            window_segments.append(seg)
+            all_tokens.extend(seg["tokens"])
+        per_window.append((window_segments, w, size))
+
+    if word_timestamps:
+        # the decode pass's encoder output rides along, so the alignment
+        # forward skips the encoder
+        jobs = [(segs, None, size, results[w].audio_features)
+                for segs, w, size in per_window if segs]
+        for lo in range(0, len(jobs), ALIGN_BATCH):
+            add_word_timestamps_many(window_jobs=jobs[lo:lo + ALIGN_BATCH], model=model,
+                                     tokenizer=tokenizer,
+                                     prepend_punctuations=prepend_punctuations,
+                                     append_punctuations=append_punctuations)
+
+    all_segments: List[dict] = []
+    for window_segments, _, _ in per_window:
+        for seg in window_segments:
             seg["id"] = len(all_segments)
             all_segments.append(seg)
-            all_tokens.extend(seg["tokens"])
             if verbose:
                 print_segment(seg)
     return all_tokens, all_segments
@@ -163,14 +213,15 @@ def transcribe_batched(
     mesh=None,
     initial_prompt: Optional[str] = None,
     word_timestamps: bool = False,
+    prepend_punctuations: str = PREPEND_PUNCTUATIONS,
+    append_punctuations: str = APPEND_PUNCTUATIONS,
     verbose: Optional[bool] = None,
     **decode_options,
 ) -> dict:
     """Transcribe and tag a recording (WAV path, int16 PCM or float32 at
     16 kHz) on the model's device. Returns {"text", "segments", "language",
-    "at_time_res", "audio_tag" [n_cells, 527]}."""
-    if word_timestamps:
-        raise NotImplementedError("word timestamps are not ported yet")
+    "at_time_res", "audio_tag" [n_cells, 527]}; with word_timestamps every
+    segment also has "words" (word, start, end, probability)."""
     if mesh is not None:
         raise NotImplementedError("a device mesh is not ported yet")
     if decode_options.pop("condition_on_previous_text", False):
@@ -199,16 +250,135 @@ def transcribe_batched(
         commit_tags = _stitch_tags_dispatch(
             model, [(grid, w * N_FRAMES, r.audio_features_for_at)
                     for w, r in enumerate(results)], at_time_res, max_batch)
-        tokens, segments = _assemble_windows(results, content_frames, tokenizer, gate,
-                                             input_stride, time_precision, verbose)
+        tokens, segments = _assemble_windows(
+            model, results, content_frames, tokenizer, gate, input_stride, time_precision,
+            word_timestamps, prepend_punctuations, append_punctuations, verbose)
         commit_tags()
     return dict(text=tokenizer.decode(tokens), segments=segments, language=language,
                 at_time_res=at_time_res, audio_tag=grid.logits)
 
 
-def transcribe(*args, **kwargs):
-    raise NotImplementedError("the sequential transcribe is not ported yet; "
-                              "use transcribe_batched")
+def _run_ladder(decode_one, temperature, gate: QualityGate, decode_options: dict
+                ) -> DecodingResult:
+    """Walk the temperature ladder until a window passes the quality gate."""
+    result = None
+    for t, kwargs in temperature_schedule(temperature, decode_options):
+        result = decode_one(DecodingOptions(**kwargs, temperature=t))
+        if not gate.needs_fallback(result):
+            break
+    return result
+
+
+def _tag_window(model, grid: TagGrid, seek: int, result: DecodingResult,
+                at_time_res: float) -> None:
+    """One window's TL-TR logits, realigned and stitched into the grid."""
+    offset = grid.offset_in_window(seek)
+    tags = model.at_forward(result.audio_features_for_at[:, offset:], at_time_res)
+    grid.write(seek, tags.float().cpu().numpy())
+
+
+def transcribe(
+    model,
+    audio: Union[str, np.ndarray, torch.Tensor],
+    *,
+    verbose: Optional[bool] = None,
+    temperature: Union[float, Tuple[float, ...]] = (0.0, 0.2, 0.4, 0.6, 0.8, 1.0),
+    compression_ratio_threshold: Optional[float] = 2.4,
+    logprob_threshold: Optional[float] = -1.0,
+    no_speech_threshold: Optional[float] = 0.6,
+    condition_on_previous_text: bool = True,
+    initial_prompt: Optional[str] = None,
+    word_timestamps: bool = False,
+    prepend_punctuations: str = PREPEND_PUNCTUATIONS,
+    append_punctuations: str = APPEND_PUNCTUATIONS,
+    at_time_res: float = 10,
+    **decode_options,
+) -> dict:
+    """Transcribe and tag a recording one 30 s window at a time, the
+    reference's seek loop, on the model's device. Returns the same dict as
+    `transcribe_batched`."""
+    with torch.no_grad():
+        # padded with 30 s of silence, so every window lies inside the mel
+        mel = log_mel_spectrogram(audio, padding=N_SAMPLES, device=model.device)
+        content_frames = mel.shape[-1] - N_FRAMES
+
+        def window_at(seek: int) -> torch.Tensor:
+            return pad_or_trim(mel.narrow(1, seek, min(N_FRAMES, mel.shape[-1] - seek)),
+                               N_FRAMES)
+
+        grid = TagGrid(content_frames, at_time_res)
+        gate = QualityGate(compression_ratio_threshold, logprob_threshold,
+                           no_speech_threshold)
+        language = _resolve_language(model, window_at(0), decode_options, verbose)
+        task = decode_options.get("task", "transcribe")
+        tokenizer = get_tokenizer(model.is_multilingual, language=language, task=task)
+        if word_timestamps and task == "translate":
+            warnings.warn("Word-level timestamps on translations may not be reliable.")
+        input_stride, time_precision = _geometry(model)
+
+        prompt_tokens = (tokenizer.encode(" " + initial_prompt.strip())
+                         if initial_prompt is not None else [])
+        thread: List[int] = list(prompt_tokens)  # the running token context
+        thread_live_from = 0  # tokens before this index are not fed as prompt
+        segments: List[dict] = []
+        seek = 0
+        while seek < content_frames:
+            window = window_at(seek)
+            segment_size = min(N_FRAMES, content_frames - seek)
+            time_offset = float(seek * HOP_LENGTH / SAMPLE_RATE)
+            decode_options["prompt"] = thread[thread_live_from:]
+            result = _run_ladder(lambda opts: decode(model, window, opts), temperature, gate,
+                                 decode_options)
+            _tag_window(model, grid, seek, result, at_time_res)
+            if gate.is_silence(result):
+                seek += segment_size
+                continue
+
+            window_start = seek
+            tokens = np.asarray(result.tokens, np.int64)
+            parse = parse_window(
+                tokens, timestamp_begin=tokenizer.timestamp_begin, time_offset=time_offset,
+                segment_size=segment_size,
+                segment_duration=segment_size * HOP_LENGTH / SAMPLE_RATE,
+                input_stride=input_stride, time_precision=time_precision)
+            # a degenerate decode (a closing timestamp pair at the window
+            # start) parses to advance 0: move past the window instead
+            seek += parse.advance_frames if parse.advance_frames > 0 else segment_size
+            new_segments = [
+                segment_record(seek=window_start, start=start, end=end, tokens=toks,
+                               result=result, eot=tokenizer.eot, tokenizer=tokenizer)
+                for start, end, toks in parse.pieces]
+
+            if word_timestamps:
+                add_word_timestamps(segments=new_segments, model=model, tokenizer=tokenizer,
+                                    mel=window, num_frames=segment_size,
+                                    prepend_punctuations=prepend_punctuations,
+                                    append_punctuations=append_punctuations,
+                                    audio_features=result.audio_features)
+                # move the seek to the end of the last aligned word, unless
+                # the window ended on a lone timestamp
+                ends = [w["end"] for seg in new_segments for w in seg["words"]]
+                lone_ts_end = (len(tokens) >= 2 and tokens[-1] >= tokenizer.timestamp_begin
+                               and tokens[-2] < tokenizer.timestamp_begin)
+                if ends and not lone_ts_end:
+                    shift = round((ends[-1] - time_offset) * FRAMES_PER_SECOND)
+                    if shift > 0:
+                        seek = window_start + shift
+
+            if verbose:
+                for seg in new_segments:
+                    print_segment(seg)
+            clear_degenerate(new_segments)
+            for seg in new_segments:
+                seg["id"] = len(segments)
+                segments.append(seg)
+                thread.extend(seg["tokens"])
+            if not condition_on_previous_text or result.temperature > 0.5:
+                # text sampled hot is unreliable context
+                thread_live_from = len(thread)
+
+    return dict(text=tokenizer.decode(thread[len(prompt_tokens):]), segments=segments,
+                language=language, at_time_res=at_time_res, audio_tag=grid.logits)
 
 
 def transcribe_many(*args, **kwargs):
