@@ -7,23 +7,29 @@ Run from the repository root on a machine with one NVIDIA H100:
 It (1) builds every hand-written CUDA kernel of the port from
 `whisper_at_tpu_torch/csrc` (one nvcc per source, all at once), (2) holds
 each kernel against its plain PyTorch version at the shapes its path gives
-it (the headline workload: large-v1, batch 24, bf16; the DTW at the word
-timing's matrix sizes) and times both, then drives three paths of the port
-at large-v1 full width with random weights from a seeded generator over
+it (the headline workload: large-v1, batch 24, bf16; K5 at the decode
+loop's four weight shapes with 24 and 96 rows; the DTW at the word timing's
+matrix sizes) and times both, then drives five paths of the port at
+large-v1 full width with random weights from a seeded generator over
 synthesized int16 audio, each with the kernels' launch counts reset just
 before and read just after, and checks its output:
 (3) the headline `transcribe_batched` call (K1-K4);
-(4) the same call with word timestamps, its windows forced to full-length
-    text (`words_opts`; K1-K4 and K6);
-(5) the sequential `transcribe` with word timestamps over 60 s (K1-K4, K6).
+(4) the int4 call: the headline with int4 cross K/V, weights and self
+    cache (K1, K2, K3-int4, K4-int4, K5; the int8 entries unused);
+(5) the beam call: the headline with beam_size=5, its windows forced to
+    full-length text (`full_text_opts`; K1-K4, K4 at G = 5 on the steps);
+(6) the headline call with word timestamps, full-length text
+    (`words_opts`; K1-K4 and K6);
+(7) the sequential `transcribe` with word timestamps over 60 s (K1-K4, K6).
 Each path's kernel inputs are also recorded (`Recorder`) and every kernel
-is held against its plain version on them: K1-K4 at each shape the path
-gave them, K6 on every call.
+is held against its plain version on them: K1-K5 and the int4 entries at
+each shape the path gave them, K6 on every call.
 
 Printed, in order: the card's name and power limit (nvidia-smi), the build
-time, one line per kernel check, one line per path (throughput, launch
-counts, the words call's peak memory, the seek loop's window count) with
-its held kernel inputs, then a
+time, one line per kernel check (K5 one per weight shape and row count),
+one line per path (throughput, launch counts, peak memory, the seek loop's
+window count) with its held kernel inputs, the headline's, the int4
+call's and the beam call's throughput side by side, then a
 JSON line with every kernel's numbers and, last, the `{"ok": true,
 "device": ...}` line. Any failed phase raises and exits non-zero before the
 result lines. Without a CUDA card it exits non-zero at once.
@@ -58,6 +64,14 @@ HEADLINE_OPTS = dict(language="en", temperature=0.0, sample_len=TOKENS, fp16=Tru
                      compression_ratio_threshold=None, no_speech_threshold=None,
                      kv_quant=True, weight_quant=True, self_kv_quant=True,
                      at_time_res=10)
+# the int4 call: every int4 decode option (the headline-int4all-optin row)
+INT4_OPTS = dict(HEADLINE_OPTS, kv_bits=4, weight_bits=4, self_kv_bits=4)
+BEAM = 5
+# K5's weight shapes at large-v1, (K, N): qkv, attention out / cross query /
+# cross out (one shape), fc1, fc2; its rows: a greedy step, the prefill
+W4_SHAPES = dict(qkv=(D, 3 * D), out=(D, D), fc1=(D, 4 * D), fc2=(4 * D, D))
+W4_PER_LAYER = dict(qkv=1, out=3, fc1=1, fc2=1)  # products of a layer's step
+W4_ROWS = (BATCH, BATCH * 4)
 # the sequential transcribe: the same decode options, one window at a time
 SEQUENTIAL_S = 60
 SEQUENTIAL_OPTS = dict({k: v for k, v in HEADLINE_OPTS.items() if k != "max_batch"},
@@ -89,6 +103,32 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Mean device time of fn() from a CUDA graph of `iters` calls replayed
+    `replays` times back to back (CUDA events): a kernel of a few
+    microseconds, without the host's cost of launching it eagerly."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
 
 
 def bound(flops: float, nbytes: float, peak_flops: float):
@@ -169,30 +209,34 @@ def k2_compare(*args):
     return err, f"{tol:.3e}"
 
 
-def k3_compare(xa, wk, wv, bv):
-    """K3 against its plain version: codes within 1 LSB on <= 1e-3 of the
-    entries, scales within 2^-7 relative; the error is that of the
-    dequantized K/V. Returns (err, tolerance text, the kernel's output)."""
+def k3_compare(xa, wk, wv, bv, bits: int = 8):
+    """K3 (or its int4 entry) against its plain version: codes within 1 LSB
+    on <= 1e-3 of the entries, scales within 2^-7 relative; the error is
+    that of the dequantized K/V. Returns (err, tolerance text, the kernel's
+    output)."""
+    from whisper_at_tpu_torch.models.layers import unpack4
     from whisper_at_tpu_torch.ops import kv_quant
 
-    kern = kv_quant.project_quantize_kv(xa, wk, wv, bv)
-    plain = kv_quant.project_quantize_kv_plain(xa, wk, wv, bv)
+    project = kv_quant.project_quantize_kv4 if bits == 4 else kv_quant.project_quantize_kv
+    kern = project(xa, wk, wv, bv)
+    plain = kv_quant.project_quantize_kv_plain(xa, wk, wv, bv, bits=bits)
     torch.cuda.synchronize()
-    code_diff = torch.cat([(kern[i].int() - plain[i].int()).abs().flatten() for i in (0, 2)])
+    codes = (lambda t: unpack4(t).int()) if bits == 4 else (lambda t: t.int())
+    code_diff = torch.cat([(codes(kern[i]) - codes(plain[i])).abs().flatten() for i in (0, 2)])
     frac = float((code_diff > 0).float().mean())
+    name = f"K3{'-int4' if bits == 4 else ''} {tuple(xa.shape)}"
     if int(code_diff.max()) > 1 or frac > 1e-3:
-        raise AssertionError(f"K3 {tuple(xa.shape)}: codes differ by up to "
-                             f"{int(code_diff.max())} on {frac:.2e} of entries "
-                             f"(limit 1 LSB on 1e-3)")
+        raise AssertionError(f"{name}: codes differ by up to {int(code_diff.max())} on "
+                             f"{frac:.2e} of entries (limit 1 LSB on 1e-3)")
     s_rel = max(float(((kern[i] - plain[i]).abs() / plain[i].clamp_min(1e-30)).max())
                 for i in (1, 3))
     if s_rel > 2 ** -7:
-        raise AssertionError(f"K3 {tuple(xa.shape)}: scales differ by rel {s_rel} > {2 ** -7}")
-    b, ta_pad, d = kern[0].shape
+        raise AssertionError(f"{name}: scales differ by rel {s_rel} > {2 ** -7}")
+    b, ta_pad = kern[0].shape[:2]
     h = kern[1].shape[1]
 
-    def dequant(codes, scales):
-        return codes.float().view(b, ta_pad, h, d // h) * scales.transpose(1, 2)[..., None]
+    def dequant(c, scales):
+        return codes(c).float().view(b, ta_pad, h, -1) * scales.transpose(1, 2)[..., None]
 
     err = max(max_err(dequant(kern[i], kern[i + 1]), dequant(plain[i], plain[i + 1]))
               for i in (0, 2))
@@ -200,21 +244,84 @@ def k3_compare(xa, wk, wv, bv):
                  f"scales rel <= 2^-7 (got {s_rel:.1e})"), kern
 
 
-def k4_compare(q, kq, ks, vq, vs, bias, n_head):
-    """K4 against its plain version: 1e-4 + 1e-3 max |ref|."""
-    from whisper_at_tpu_torch.ops import cross_decode
+def k4_compare(q, kq, ks, vq, vs, bias, n_head, bits: int = 8):
+    """K4 (or its int4 entry) against its plain version: 1e-4 + 1e-3 max |ref|."""
+    from whisper_at_tpu_torch.ops import cross_decode as cd
 
-    out = cross_decode.cross_attention_int8(q, kq, ks, vq, vs, bias, n_head)
-    ref = cross_decode.cross_attention_int8_plain(q, kq, ks, vq, vs, bias, n_head)
+    kernel, plain = ((cd.cross_attention_int4, cd.cross_attention_int4_plain) if bits == 4
+                     else (cd.cross_attention_int8, cd.cross_attention_int8_plain))
+    out = kernel(q, kq, ks, vq, vs, bias, n_head)
+    ref = plain(q, kq, ks, vq, vs, bias, n_head)
     torch.cuda.synchronize()
     err = max_err(out, ref)
     tol = 1e-4 + 1e-3 * float(ref.abs().max())
-    check(f"K4 {tuple(q.shape)}", err, tol)
+    check(f"K4{'-int4' if bits == 4 else ''} {tuple(q.shape)}", err, tol)
     return err, f"{tol:.3e}"
 
 
-COMPARE = dict(K1=k1_compare, K2=k2_compare, K3=lambda *a: k3_compare(*a)[:2],
-               K4=k4_compare)
+def k5_compare(x, wp):
+    """K5 against its plain version: bf16 x int4 products are exact in fp32,
+    so only the summation order differs; 2^-18 of max sum |x| |w|."""
+    from whisper_at_tpu_torch.models.layers import unpack4
+    from whisper_at_tpu_torch.ops import w4_matmul
+
+    out = w4_matmul.w4_matmul(x, wp)
+    ref = w4_matmul.w4_matmul_plain(x, wp)
+    torch.cuda.synchronize()
+    err = max_err(out, ref)
+    tol = 2 ** -18 * float((x.float().abs() @ unpack4(wp).float().abs().t()).max())
+    check(f"K5 {tuple(x.shape)} x {tuple(wp.shape)}", err, tol)
+    return err, f"{tol:.3e}"
+
+
+COMPARE = {"K1": k1_compare, "K2": k2_compare, "K3": lambda *a: k3_compare(*a)[:2],
+           "K4": k4_compare, "K3-int4": lambda *a: k3_compare(*a, bits=4)[:2],
+           "K4-int4": lambda *a: k4_compare(*a, bits=4), "K5": k5_compare}
+
+
+def k5_rows(gen, dev) -> dict:
+    """K5 at every weight shape of the decode loop, with 24 and 96 rows:
+    held against its plain version and timed beside it and beside
+    torch.matmul of x with the bf16 weight (the full-width product int4
+    replaces), each as device time from a CUDA graph (`graph_ms`); K5's
+    eager time per call, host launch included, is printed too. The
+    kernels-line row sums one greedy step of one decoder layer: its six
+    int4 products at M = 24."""
+    from whisper_at_tpu_torch.models.layers import pack4
+    from whisper_at_tpu_torch.ops import w4_matmul
+
+    total = dict(err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, ops=0.0, bytes=0.0)
+    tols = []
+    for m in W4_ROWS:
+        for name, (k, n) in W4_SHAPES.items():
+            x = (torch.randn((m, k), generator=gen, device=dev)).to(torch.bfloat16)
+            codes = torch.randint(-7, 8, (n, k), generator=gen, device=dev, dtype=torch.int8)
+            wp = pack4(codes)
+            w16 = codes.to(torch.bfloat16)
+            err, tol = k5_compare(x, wp)
+            ms = graph_ms(lambda: w4_matmul.w4_matmul(x, wp))
+            eager_ms = time_ms(lambda: w4_matmul.w4_matmul(x, wp), 100)
+            plain_ms = graph_ms(lambda: w4_matmul.w4_matmul_plain(x, wp), 5, 2)
+            lib_ms = graph_ms(lambda: torch.matmul(x, w16.t()))
+            ops, nbytes = 2.0 * m * n * k, n * k / 2 + 2.0 * m * k + 4.0 * m * n
+            b_ms, b_by = bound(ops, nbytes, PEAK_BF16_FLOPS)
+            print(f"K5 {name} M={m} K={k} N={n}: max_abs_err={err:.3e} (tol {tol}) "
+                  f"kernel_ms={ms:.4f} (eager, launch included: {eager_ms:.4f}) "
+                  f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (torch.matmul, bf16 "
+                  f"weight) bound_ms={b_ms:.4f} ({b_by}), device times from CUDA graphs",
+                  flush=True)
+            tols.append(f"M={m} {name}: {err:.2e} <= {tol}")
+            total["err"] = max(total["err"], err)
+            if m == BATCH:
+                reps = W4_PER_LAYER[name]
+                total["ms"] += reps * ms
+                total["plain_ms"] += reps * plain_ms
+                total["library_ms"] += reps * lib_ms
+                total["ops"] += reps * ops
+                total["bytes"] += reps * nbytes
+    return dict(module=w4_matmul, err=total["err"], tol="; ".join(tols), ms=total["ms"],
+                plain_ms=total["plain_ms"], library_ms=total["library_ms"],
+                bound=bound(total["ops"], total["bytes"], PEAK_BF16_FLOPS))
 
 
 def kernel_checks(card: str) -> dict:
@@ -289,7 +396,7 @@ def kernel_checks(card: str) -> dict:
     kq, ks, vq, vs = kern
     bias = cross_decode.pad_bias(T_ENC, ta_pad, dev)
     errs, tols = [], []
-    for groups in (4, 1):  # the prefill bucket, then the per-token steps
+    for groups in (4, BEAM, 1):  # the prefill bucket, a beam step, the greedy steps
         qd = randn(BATCH, H * groups, DH, scale=DH ** -0.5)
         e, tol = k4_compare(qd, kq, ks, vq, vs, bias, H)
         errs.append(e)
@@ -306,7 +413,43 @@ def kernel_checks(card: str) -> dict:
                     2 * BATCH * T_ENC * D + 2 * 4.0 * BATCH * H * T_ENC
                     + 4.0 * T_ENC + 2.0 * BATCH * H * DH + 4.0 * BATCH * H * DH,
                     PEAK_FP32_FLOPS))
-    del kern, kq, ks, vq, vs, xa
+    del kern, kq, ks, vq, vs
+
+    # ---- K3-int4: the same projection, packed int4 codes [24, 1536, 640] --- #
+    err, tol, kern = k3_compare(xa, wk, wv, bv, bits=4)
+    rows["K3-int4"] = dict(
+        module=kv_quant, kernel=kv_quant.KERNEL4, err=err, tol=tol,
+        ms=time_ms(lambda: kv_quant.project_quantize_kv4(xa, wk, wv, bv, out=kern), 10),
+        plain_ms=time_ms(lambda: kv_quant.project_quantize_kv_plain(xa, wk, wv, bv, bits=4),
+                         3, 1),
+        library_ms=None,
+        bound=bound(2.0 * 2 * BATCH * T_ENC * D * D,
+                    2.0 * BATCH * T_ENC * D + 2 * 2.0 * D * D + 2.0 * D
+                    + 2 * (BATCH * ta_pad * D / 2 + 4.0 * BATCH * H * ta_pad),
+                    PEAK_BF16_FLOPS))
+
+    # ---- K4-int4 over K3-int4's output: G = 1 and a beam step, G = 5 ------- #
+    kp, ks, vp, vs = kern
+    errs, tols = [], []
+    for groups in (BEAM, 1):
+        qd = randn(BATCH, H * groups, DH, scale=DH ** -0.5)
+        e, tol = k4_compare(qd, kp, ks, vp, vs, bias, H, bits=4)
+        errs.append(e)
+        tols.append(f"G={groups}: err {e:.3e} <= {tol}")
+    rows["K4-int4"] = dict(
+        module=cross_decode, kernel=cross_decode.KERNEL4, err=max(errs), tol="; ".join(tols),
+        ms=time_ms(lambda: cross_decode.cross_attention_int4(qd, kp, ks, vp, vs, bias, H), 50),
+        plain_ms=time_ms(lambda: cross_decode.cross_attention_int4_plain(
+            qd, kp, ks, vp, vs, bias, H), 5, 1),
+        library_ms=None,
+        bound=bound(4.0 * BATCH * H * T_ENC * DH,
+                    2 * BATCH * T_ENC * D / 2 + 2 * 4.0 * BATCH * H * T_ENC
+                    + 4.0 * T_ENC + 2.0 * BATCH * H * DH + 4.0 * BATCH * H * DH,
+                    PEAK_FP32_FLOPS))
+    del kern, kp, ks, vp, vs, xa
+
+    # ---- K5 int4-weight matmul: the decode loop's four weight shapes ------- #
+    rows["K5"] = k5_rows(gen, dev)
 
     # ---- K6 DTW trace: ragged [4, 101, 1500], then [1, 448, 1500] ---------- #
     cases = []
@@ -321,8 +464,9 @@ def kernel_checks(card: str) -> dict:
     del cases
 
     for name, r in rows.items():
+        r.setdefault("kernel", r["module"].KERNEL)
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        print(f"{name} {r['module'].KERNEL.name}: max_abs_err={r['err']:.3e} "
+        print(f"{name} {r['kernel'].name}: max_abs_err={r['err']:.3e} "
               f"(tol {r['tol']}) kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
               f"library_ms={lib} bound_ms={r['bound'][0]:.4f} ({r['bound'][1]}) "
               f"[{card}]", flush=True)
@@ -339,13 +483,18 @@ def synth_audio(seconds: int, seed: int) -> np.ndarray:
 
 
 def kernels_of(names) -> list:
+    """The registered kernel names of kernel ids (K1 .. K6, K3-int4, K4-int4)."""
     from whisper_at_tpu_torch.ops import cross_decode, dtw, enc_attention, enc_mlp, kv_quant
+    from whisper_at_tpu_torch.ops import w4_matmul
 
-    modules = dict(K1=enc_attention, K2=enc_mlp, K3=kv_quant, K4=cross_decode, K6=dtw)
-    return [modules[n].KERNEL.name for n in names]
+    kernels = {"K1": enc_attention.KERNEL, "K2": enc_mlp.KERNEL, "K3": kv_quant.KERNEL,
+               "K4": cross_decode.KERNEL, "K3-int4": kv_quant.KERNEL4,
+               "K4-int4": cross_decode.KERNEL4, "K5": w4_matmul.KERNEL, "K6": dtw.KERNEL}
+    return [kernels[n].name for n in names]
 
 
 HEADLINE_KERNELS = ("K1", "K2", "K3", "K4")
+INT4_KERNELS = ("K1", "K2", "K3-int4", "K4-int4", "K5")
 WORDS_KERNELS = HEADLINE_KERNELS + ("K6",)
 
 
@@ -353,16 +502,19 @@ class Recorder:
     """Within `with Recorder():`, each kernel wrapper is replaced, at the
     place the path calls it, by one that keeps a copy of its inputs and then
     launches as before (the wrapper counts its launch once, as always):
-    every call of K6, and the first call of K1-K4 at each distinct set of
-    shapes. `inputs[kernel id]` lists the argument tuples."""
+    every call of K6, and the first call of each other kernel at each
+    distinct set of shapes. `inputs[kernel id]` lists the argument tuples."""
 
     def __init__(self):
         from whisper_at_tpu_torch.models import decoder, encoder
-        from whisper_at_tpu_torch.ops import dtw
+        from whisper_at_tpu_torch.ops import dtw, w4_matmul
 
-        self.sites = dict(K1=(encoder, "enc_attention"), K2=(encoder, "enc_mlp"),
-                          K3=(decoder, "project_quantize_kv"),
-                          K4=(decoder, "cross_attention_int8"), K6=(dtw, "dtw_trace"))
+        self.sites = {"K1": (encoder, "enc_attention"), "K2": (encoder, "enc_mlp"),
+                      "K3": (decoder, "project_quantize_kv"),
+                      "K4": (decoder, "cross_attention_int8"),
+                      "K3-int4": (decoder, "project_quantize_kv4"),
+                      "K4-int4": (decoder, "cross_attention_int4"),
+                      "K5": (w4_matmul, "w4_matmul"), "K6": (dtw, "dtw_trace")}
         self.seen = {name: {} for name in self.sites}
         self.originals = {}
 
@@ -395,15 +547,15 @@ class Recorder:
 
 def hold_path_inputs(card: str, label: str, inputs: dict):
     """Every kernel against its plain version on the inputs a path gave it
-    (K1-K4 at each shape, K6 on every call). Returns K6's `dtw_check` dict,
-    or None when the path did not run K6."""
+    (K1-K5 and the int4 entries at each shape, K6 on every call). Returns
+    K6's `dtw_check` dict, or None when the path did not run K6."""
     for name, calls in inputs.items():
         if name == "K6" or not calls:
             continue
         for args in calls:
             err, tol = COMPARE[name](*args)
-            shapes = [list(a.shape) for a in args if torch.is_tensor(a)][:1]
-            print(f"{label}: {name} on its input {shapes[0]}: max_abs_err={err:.3e} "
+            shapes = [list(a.shape) for a in args if torch.is_tensor(a)][:2]
+            print(f"{label}: {name} on its input {shapes}: max_abs_err={err:.3e} "
                   f"(tol {tol}) [{card}]", flush=True)
     if not inputs["K6"]:
         return None
@@ -414,10 +566,10 @@ def hold_path_inputs(card: str, label: str, inputs: dict):
     return k6
 
 
-def run_counted(fn, kernel_ids):
+def run_counted(fn, kernel_ids, unused_ids=()):
     """fn() with every launch count set to 0 just before and read just
-    after; fails when a kernel of the path was not launched. Returns
-    (result, seconds, counts)."""
+    after; fails when a kernel of the path was not launched, or when one of
+    `unused_ids` was. Returns (result, seconds, counts)."""
     from whisper_at_tpu_torch.ops import cuda
 
     torch.cuda.synchronize()
@@ -430,6 +582,9 @@ def run_counted(fn, kernel_ids):
     missing = [name for name in kernels_of(kernel_ids) if counts[name] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on this path: {missing}")
+    stray = [name for name in kernels_of(unused_ids) if counts[name] != 0]
+    if stray:
+        raise AssertionError(f"kernels launched that this path must not use: {stray}")
     return result, seconds, counts
 
 
@@ -469,7 +624,7 @@ def check_segments(result, audio_len: int, words: bool) -> int:
 def transcribe_check(card: str, model) -> dict:
     """The headline call at large-v1 full width: a warm-up call whose kernel
     inputs are recorded and held against the plain versions, then the
-    counted call. Returns its launch counts."""
+    counted call. Returns its launch counts and throughput."""
     import whisper_at_tpu_torch as wat
 
     audio = synth_audio(BATCH * 30, SEED)
@@ -487,26 +642,100 @@ def transcribe_check(card: str, model) -> dict:
         lambda: wat.transcribe_batched(model, audio, **HEADLINE_OPTS), HEADLINE_KERNELS)
     peak = torch.cuda.max_memory_allocated()
     check_segments(result, len(audio), words=False)
+    rate = len(audio) / 16000 / seconds
     print(f"transcribe_batched {SIZE} batch {BATCH}: {len(audio) / 16000:.0f} s audio "
-          f"in {seconds:.3f} s = {len(audio) / 16000 / seconds:.2f} audio-s/s "
+          f"in {seconds:.3f} s = {rate:.2f} audio-s/s "
           f"(second call; the first took {warm_s:.3f} s), {len(result['segments'])} segments, "
           f"tags {np.asarray(result['audio_tag']).shape}, peak memory {peak / 2**30:.2f} GiB, "
           f"launches {counts} [{card}]", flush=True)
-    return counts
+    return counts, rate
 
 
-def words_opts(model) -> dict:
-    """The words call's options: the headline's with word timestamps, and
-    with timestamp tokens off and EOT suppressed, so every window decodes
-    TOKENS text tokens, the length of real speech's windows (about 50-100).
-    Random weights would otherwise end a window's text after a few tokens,
-    and the alignment would run on rows far shorter than users send."""
+def int4_check(card: str, model) -> dict:
+    """The headline call with every int4 option (`INT4_OPTS`): a warm-up
+    call whose kernel inputs are recorded and held against the plain
+    versions, then the counted call, which must launch K1, K2, K3-int4,
+    K4-int4 and K5 and neither int8 entry of K3 or K4. Returns its launch
+    counts and its throughput."""
+    import whisper_at_tpu_torch as wat
+
+    audio = synth_audio(BATCH * 30, SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with Recorder() as rec:
+        wat.transcribe_batched(model, audio, **INT4_OPTS)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    hold_path_inputs(card, "int4 call", rec.inputs)
+    del rec
+
+    torch.cuda.reset_peak_memory_stats()
+    result, seconds, counts = run_counted(
+        lambda: wat.transcribe_batched(model, audio, **INT4_OPTS), INT4_KERNELS, ("K3", "K4"))
+    peak = torch.cuda.max_memory_allocated()
+    check_segments(result, len(audio), words=False)
+    rate = len(audio) / 16000 / seconds
+    print(f"transcribe_batched int4 (kv, weights, self cache) {SIZE} batch {BATCH}: "
+          f"{len(audio) / 16000:.0f} s audio in {seconds:.3f} s = {rate:.2f} audio-s/s "
+          f"(second call; the first took {warm_s:.3f} s), {len(result['segments'])} segments, "
+          f"peak memory {peak / 2**30:.2f} GiB, launches {counts} [{card}]", flush=True)
+    return counts, rate
+
+
+def full_text_opts(model) -> dict:
+    """The headline's options with timestamp tokens off and EOT suppressed,
+    so every window decodes TOKENS text tokens, the length of real speech's
+    windows (about 50-100). Random weights would otherwise end a window's
+    text (or every beam) after a few tokens."""
     from whisper_at_tpu_torch.tokenizer import get_tokenizer
 
     tok = get_tokenizer(model.is_multilingual)
     suppress = [-1, tok.eot, *range(tok.timestamp_begin, model.dims.n_vocab)]
-    return dict(HEADLINE_OPTS, word_timestamps=True, without_timestamps=True,
-                suppress_tokens=suppress)
+    return dict(HEADLINE_OPTS, without_timestamps=True, suppress_tokens=suppress)
+
+
+def words_opts(model) -> dict:
+    """The words call's options: full-length text (`full_text_opts`) with
+    word timestamps, so the alignment runs on rows as long as speech's."""
+    return dict(full_text_opts(model), word_timestamps=True)
+
+
+def beam_check(card: str, model):
+    """`transcribe_batched` with beam_size=5 and the headline's int8 options
+    (the large-beam row) over the headline's audio, full-length text: a
+    warm-up call whose kernel inputs are recorded and held against the
+    plain versions (K4 at G = 5 among them), then the counted call. Returns
+    its launch counts and throughput."""
+    import whisper_at_tpu_torch as wat
+
+    audio = synth_audio(BATCH * 30, SEED)
+    opts = dict(full_text_opts(model), beam_size=BEAM)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with Recorder() as rec:
+        wat.transcribe_batched(model, audio, **opts)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    k4_rows = sorted({args[0].shape[1] // H for args in rec.inputs["K4"]})
+    if BEAM not in k4_rows:
+        raise AssertionError(f"K4 never ran at G = {BEAM} in the beam call (G = {k4_rows})")
+    hold_path_inputs(card, "beam call", rec.inputs)
+    del rec
+
+    torch.cuda.reset_peak_memory_stats()
+    result, seconds, counts = run_counted(
+        lambda: wat.transcribe_batched(model, audio, **opts), HEADLINE_KERNELS)
+    peak = torch.cuda.max_memory_allocated()
+    check_segments(result, len(audio), words=False)
+    eot = opts["suppress_tokens"][1]
+    n_text = [len([t for t in seg["tokens"] if t < eot]) for seg in result["segments"]]
+    rate = len(audio) / 16000 / seconds
+    print(f"transcribe_batched beam_size={BEAM} {SIZE} batch {BATCH} ({BATCH * BEAM} rows): "
+          f"{len(audio) / 16000:.0f} s audio in {seconds:.3f} s = {rate:.2f} audio-s/s "
+          f"(second call; the first took {warm_s:.3f} s), K4 at G = {k4_rows}, "
+          f"{len(result['segments'])} segments of {min(n_text)}-{max(n_text)} tokens, "
+          f"peak memory {peak / 2**30:.2f} GiB, launches {counts} [{card}]", flush=True)
+    return counts, rate
 
 
 def words_check(card: str, model):
@@ -601,7 +830,11 @@ def main() -> int:
     import whisper_at_tpu_torch as wat
 
     model = wat.build_model(SIZE, device="cuda", dtype=torch.bfloat16, seed=SEED)
-    counts = transcribe_check(card, model)
+    counts, rate = transcribe_check(card, model)
+    int4_counts, int4_rate = int4_check(card, model)
+    _, beam_rate = beam_check(card, model)
+    print(f"throughput in this process: headline {rate:.2f}, int4 {int4_rate:.2f}, "
+          f"beam {BEAM} {beam_rate:.2f} audio-s/s [{card}]", flush=True)
     words_counts, words_k6 = words_check(card, model)
     # K6's numbers in the kernels line come from the words call's own inputs
     words_k6["err"] = max(words_k6["err"], rows["K6"]["err"])
@@ -610,12 +843,15 @@ def main() -> int:
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to here [{card}]",
           flush=True)
 
+    # launches from the counted call of the path that runs each kernel
+    path_counts = {"K6": words_counts, "K3-int4": int4_counts, "K4-int4": int4_counts,
+                   "K5": int4_counts}
     line = {"kernels": [
         {"name": name,
          "route": "cuda",
-         "source": f"whisper_at_tpu_torch/csrc/{r['module'].KERNEL.source}",
-         "replaces": r["module"].KERNEL.replaces,
-         "launches": (words_counts if name == "K6" else counts)[r["module"].KERNEL.name],
+         "source": f"whisper_at_tpu_torch/csrc/{r['kernel'].source}",
+         "replaces": r["kernel"].replaces,
+         "launches": path_counts.get(name, counts)[r["kernel"].name],
          "max_abs_err": r["err"],
          "ms": r["ms"],
          "plain_ms": r["plain_ms"],

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card
+(K1-K6 and the int4 entries of K3 and K4).
 
 Every test here needs an NVIDIA GPU and the CUDA toolkit (nvcc); without a
 card they skip. Run them on the card with `pytest -m cuda
@@ -76,6 +77,55 @@ def test_kv_quant_and_cross_decode_kernels(dev, groups):
     _close(out, ref, rel=1e-3)
 
 
+@pytest.mark.parametrize("m, k, n", [(1, 256, 128), (24, 1280, 384), (96, 512, 256),
+                                     (120, 5120, 128), (256, 96, 64)])
+def test_w4_matmul_kernel(dev, m, k, n):
+    """K5 against its plain version: the products of bf16 x int4 are exact
+    in fp32, so only the summation order differs (2^-18 of sum |x| |w|)."""
+    from whisper_at_tpu_torch.models.layers import pack4
+    from whisper_at_tpu_torch.ops.w4_matmul import w4_matmul, w4_matmul_plain
+
+    gen = torch.Generator(device=dev).manual_seed(m + k)
+    x = _randn(gen, m, k)
+    codes = torch.randint(-7, 8, (n, k), generator=gen, device=dev, dtype=torch.int8)
+    wp = pack4(codes)
+    out = w4_matmul(x, wp)
+    ref = w4_matmul_plain(x, wp)
+    torch.cuda.synchronize()
+    scale = float((x.float().abs() @ codes.float().abs().t()).max())
+    assert float((out - ref).abs().max()) <= 2 ** -18 * scale
+
+
+@pytest.mark.parametrize("groups", [1, 5])
+def test_kv_quant4_and_cross_decode4_kernels(dev, groups):
+    """K3-int4 (codes within 1 LSB on <= 0.1%, scales rel 2^-7, as K3) and
+    K4-int4 over its output."""
+    from whisper_at_tpu_torch.models.layers import unpack4
+    from whisper_at_tpu_torch.ops.cross_decode import (
+        cross_attention_int4, cross_attention_int4_plain, pad_bias)
+    from whisper_at_tpu_torch.ops.kv_quant import (
+        pad_ta, project_quantize_kv4, project_quantize_kv_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    b, ta, d, h = 2, 300, 256, 4
+    xa = _randn(gen, b, ta, d)
+    wk, wv = _randn(gen, d, d, scale=d ** -0.5), _randn(gen, d, d, scale=d ** -0.5)
+    bv = _randn(gen, d, scale=0.02)
+    kern = project_quantize_kv4(xa, wk, wv, bv)
+    plain = project_quantize_kv_plain(xa, wk, wv, bv, bits=4)
+    for i in (0, 2):
+        diff = (unpack4(kern[i]).int() - unpack4(plain[i]).int()).abs()
+        assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) <= 1e-3
+    for i in (1, 3):
+        rel = ((kern[i] - plain[i]).abs() / plain[i].clamp_min(1e-30)).max()
+        assert float(rel) <= 2 ** -7
+    q = _randn(gen, b, h * groups, 64, scale=0.125)
+    bias = pad_bias(ta, pad_ta(ta), dev)
+    out = cross_attention_int4(q, *kern[:2], *kern[2:], bias, h)
+    ref = cross_attention_int4_plain(q, *kern[:2], *kern[2:], bias, h)
+    _close(out, ref, rel=1e-3)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_dtw_kernel(dev, dtype):
     """K6 against its plain version, bit for bit: a ragged batch with ties
@@ -98,7 +148,8 @@ def test_dtw_kernel(dev, dtype):
 
 
 def test_transcribe_batched_runs_through_every_kernel(dev):
-    """With word timestamps the call reaches K1-K4 and K6."""
+    """With word timestamps and the int8 options the call reaches K1-K4 and
+    K6, and no int4 entry."""
     import whisper_at_tpu_torch as wat
     from whisper_at_tpu_torch.ops import cuda
 
@@ -110,6 +161,47 @@ def test_transcribe_batched_runs_through_every_kernel(dev):
                                     self_kv_quant=True, logprob_threshold=None,
                                     compression_ratio_threshold=None,
                                     no_speech_threshold=None, word_timestamps=True)
-    assert all(n > 0 for n in cuda.launch_counts().values()), cuda.launch_counts()
+    counts = cuda.launch_counts()
+    for name in ("enc_attention", "enc_mlp", "kv_quant", "cross_decode", "dtw"):
+        assert counts[name] > 0, counts
+    assert counts["kv_quant4"] == counts["cross_decode4"] == counts["w4_matmul"] == 0, counts
     assert result["audio_tag"].shape == (4, 527) and np.isfinite(result["audio_tag"]).all()
     assert any(seg["words"] for seg in result["segments"])
+
+
+def test_transcribe_batched_int4_runs_through_its_kernels(dev):
+    """With every int4 option the call reaches K1, K2, K3-int4, K4-int4 and
+    K5, and neither int8 entry of K3 or K4."""
+    import whisper_at_tpu_torch as wat
+    from whisper_at_tpu_torch.ops import cuda
+
+    model = wat.build_model("tiny", device=dev, dtype=torch.bfloat16, seed=0)
+    audio = (np.random.default_rng(0).standard_normal(16000 * 40) * 3000).astype(np.int16)
+    cuda.reset_launch_counts()
+    result = wat.transcribe_batched(model, audio, language="en", temperature=0.0,
+                                    sample_len=8, kv_quant=True, kv_bits=4, weight_quant=True,
+                                    weight_bits=4, self_kv_quant=True, self_kv_bits=4,
+                                    logprob_threshold=None, compression_ratio_threshold=None,
+                                    no_speech_threshold=None)
+    counts = cuda.launch_counts()
+    for name in ("enc_attention", "enc_mlp", "kv_quant4", "cross_decode4", "w4_matmul"):
+        assert counts[name] > 0, counts
+    assert counts["kv_quant"] == counts["cross_decode"] == 0, counts
+    assert result["audio_tag"].shape == (4, 527) and np.isfinite(result["audio_tag"]).all()
+
+
+def test_transcribe_batched_beam_runs_through_its_kernels(dev):
+    """Beam search (beam 3, int8) reaches K3 and K4, K4 at G = 3 per step."""
+    import whisper_at_tpu_torch as wat
+    from whisper_at_tpu_torch.ops import cuda
+
+    model = wat.build_model("tiny", device=dev, dtype=torch.bfloat16, seed=0)
+    audio = (np.random.default_rng(0).standard_normal(16000 * 40) * 3000).astype(np.int16)
+    cuda.reset_launch_counts()
+    result = wat.transcribe_batched(model, audio, language="en", temperature=0.0,
+                                    sample_len=8, beam_size=3, kv_quant=True, weight_quant=True,
+                                    self_kv_quant=True, logprob_threshold=None,
+                                    compression_ratio_threshold=None, no_speech_threshold=None)
+    counts = cuda.launch_counts()
+    assert counts["kv_quant"] > 0 and counts["cross_decode"] > 0, counts
+    assert all(np.isfinite(seg["avg_logprob"]) for seg in result["segments"])

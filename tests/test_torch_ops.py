@@ -159,7 +159,8 @@ def test_log_mel_tone_matches_jax():
 def test_kernels_registered_with_sources():
     """Every kernel names an existing CUDA source and the TPU kernel it
     replaces; nothing was built or launched by the CPU tests."""
-    assert set(cuda.KERNELS) == {"enc_attention", "enc_mlp", "kv_quant", "cross_decode", "dtw"}
+    assert set(cuda.KERNELS) == {"enc_attention", "enc_mlp", "kv_quant", "kv_quant4",
+                                 "cross_decode", "cross_decode4", "w4_matmul", "dtw"}
     for kernel in cuda.KERNELS.values():
         assert kernel.library_path().endswith(".so")
         assert kernel.replaces.startswith("whisper_at_tpu/ops/")

@@ -1,6 +1,7 @@
 """The port's own rules: it loads no JAX, its entry points default to the
-card, unported options refuse loudly, and its standard-library tokenizer
-matches the JAX package's `regex`-based one."""
+card, unported options refuse loudly, invalid options fail as in the JAX
+package, and its standard-library tokenizer matches the JAX package's
+`regex`-based one."""
 
 import subprocess
 import sys
@@ -39,7 +40,8 @@ def test_import_loads_no_jax():
     code = ("import sys, whisper_at_tpu_torch, whisper_at_tpu_torch.transcribe, "
             "whisper_at_tpu_torch.convert, whisper_at_tpu_torch.ops, "
             "whisper_at_tpu_torch.timing, whisper_at_tpu_torch.registry, "
-            "whisper_at_tpu_torch.ops.dtw, whisper_at_tpu_torch.ops.median; "
+            "whisper_at_tpu_torch.ops.dtw, whisper_at_tpu_torch.ops.median, "
+            "whisper_at_tpu_torch.ops.w4_matmul; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
             "'whisper_at_tpu')]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -80,11 +82,9 @@ def test_load_model_reads_a_local_reference_checkpoint(tmp_path):
 
 
 @pytest.mark.parametrize("kwargs, what", [
-    (dict(beam_size=5), "beam"),
-    (dict(temperature=(0.5,), best_of=3), "best_of"),
-    (dict(kv_bits=4, kv_quant=True), "8-bit"),
-    (dict(weight_bits=4, weight_quant=True), "8-bit"),
     (dict(mesh=object()), "mesh"),
+    (dict(draft_model=object()), "speculative"),
+    (dict(kv_layout="heads", kv_quant=True), "fused"),
 ])
 def test_unported_options_raise(kwargs, what):
     model = wat.build_model("tiny", device="cpu")
@@ -92,6 +92,28 @@ def test_unported_options_raise(kwargs, what):
     kwargs = {"temperature": 0.0, **kwargs}
     with pytest.raises(NotImplementedError, match=what):
         wat.transcribe_batched(model, audio, language="en", fp16=False, **kwargs)
+
+
+@pytest.mark.parametrize("options", [
+    dict(beam_size=2, best_of=2),
+    dict(temperature=0.0, best_of=3),
+    dict(patience=2.0),
+    dict(length_penalty=3.0),
+    dict(length_penalty=-0.1),
+    dict(kv_bits=6),
+    dict(weight_bits=2),
+    dict(self_kv_bits=16),
+])
+def test_option_rules_match_jax(options):
+    """The options the JAX package refuses with ValueError, the port refuses
+    the same way."""
+    from whisper_at_tpu.decoding import DecodingOptions as JaxOptions
+    from whisper_at_tpu.decoding import DecodingTask as JaxTask
+
+    with pytest.raises(ValueError):
+        JaxTask._verify_options(None, JaxOptions(**options))
+    with pytest.raises(ValueError):
+        wat.decoding.DecodingTask._verify_options(wat.DecodingOptions(**options))
 
 
 def test_unported_entry_points_raise():

@@ -1,6 +1,7 @@
 """Where the time goes in the port's headline workload, on the card.
 
-    python3 tools/profile_torch_headline.py [--words] [--out build/profile_torch_headline.json]
+    python3 tools/profile_torch_headline.py [--words | --int4 | --beam]
+        [--out build/profile_torch_headline.json]
 
 Builds large-v1 (bf16, random weights from a seeded generator) and runs
 `transcribe_batched` over chip_smoke.py's synthesized audio with
@@ -20,12 +21,19 @@ chip_smoke.py's headline options (`HEADLINE_OPTS`, `synth_audio`):
    are timed the same way: the alignment forward
    (`decoder_forward_with_qk`), the token probabilities, the weight chain
    (`_process_qk_weights`), K6 (`ops.dtw.dtw_trace`), the host backtrace
-   and the word carving (`_alignment_from_path`, `_apply_alignment`);
+   and the word carving (`_alignment_from_path`, `_apply_alignment`).
+   With `--int4` the call takes chip_smoke.py's `INT4_OPTS` (int4 cross
+   K/V, weights through K5, self cache); with `--beam` its beam call's
+   options (beam_size=5, full-length text), the decode stage being
+   `beam_sample_loop`;
 3. one call under `torch.profiler`: the device's busy time (the union of
-   kernel intervals) and its idle share of that same profiled call, and
-   the kernels that take the most device time.
+   kernel intervals) and its idle share of that same profiled call, the
+   kernels that take the most device time, and the device time of K5 and
+   of the widening copies (`direct_copy` kernels) with their shares of the
+   busy time.
 
-Prints one JSON object (also written to --out). Needs one NVIDIA GPU.
+Prints the card's name and power limit, then one JSON object (also
+written to --out). Needs one NVIDIA GPU.
 """
 
 import argparse
@@ -33,7 +41,6 @@ import functools
 import importlib
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -41,7 +48,9 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import BATCH, HEADLINE_OPTS, SEED, SIZE, synth_audio, words_opts  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    BATCH, BEAM, HEADLINE_OPTS, INT4_OPTS, SEED, SIZE, card_line, full_text_opts, synth_audio,
+    words_opts)
 
 
 def timed(fn):
@@ -79,6 +88,7 @@ def stage_hooks(words: bool) -> list:
              (Whisper, "embed_audio", "encoder_s"),
              (decoding, "precompute_cross_kv", "cross_kv_s"),
              (decoding, "greedy_sample_loop", "decode_s"),
+             (decoding, "beam_sample_loop", "decode_s"),
              (Whisper, "at_forward", "tags_s")]
     if words:
         hooks += [(timing, "decoder_forward_with_qk", "align_forward_s"),
@@ -101,8 +111,8 @@ def stage_times(call, hooks) -> dict:
         def timed_stage(*args, **kwargs):
             out, seconds = timed(lambda: fn(*args, **kwargs))
             stages[key] += seconds
-            if key == "decode_s":
-                steps.append(out[3])
+            if key == "decode_s":  # greedy: steps run; beam: a device count
+                steps.append(int(out[3] if len(out) == 4 else out[6]))
             return out
         return timed_stage
 
@@ -125,8 +135,13 @@ def stage_times(call, hooks) -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", default="build/profile_torch_headline.json")
-    parser.add_argument("--words", action="store_true",
-                        help="profile the call with word_timestamps=True")
+    mode = parser.add_mutually_exclusive_group()
+    mode.add_argument("--words", action="store_true",
+                      help="profile the call with word_timestamps=True")
+    mode.add_argument("--int4", action="store_true",
+                      help="profile the call with every int4 option")
+    mode.add_argument("--beam", action="store_true",
+                      help=f"profile the call with beam_size={BEAM}, full-length text")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -134,11 +149,20 @@ def main(argv=None) -> int:
     import whisper_at_tpu_torch as wat
     from whisper_at_tpu_torch.ops import cuda
 
+    card = card_line()
+    print(card, flush=True)
     cuda.build_all()
     model = wat.build_model(SIZE, device="cuda", dtype=torch.bfloat16, seed=SEED)
     audio = synth_audio(BATCH * 30, SEED)
 
-    opts = words_opts(model) if args.words else HEADLINE_OPTS
+    if args.words:
+        opts = words_opts(model)
+    elif args.int4:
+        opts = INT4_OPTS
+    elif args.beam:
+        opts = dict(full_text_opts(model), beam_size=BEAM)
+    else:
+        opts = HEADLINE_OPTS
 
     def call():
         return wat.transcribe_batched(model, audio, **opts)
@@ -160,17 +184,24 @@ def main(argv=None) -> int:
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    power = subprocess.run(["nvidia-smi", "--query-gpu=power.limit", "--format=csv,noheader"],
-                           capture_output=True, text=True, timeout=60).stdout.strip()
+
+    def device_s(pattern: str) -> float:
+        return sum(us for name, us in by_name.items() if pattern in name) * 1e-6
+
+    k5_s, copy_s = device_s("w4_matmul_kernel"), device_s("direct_copy")
     audio_s = len(audio) / 16000
     report = {
-        "card": torch.cuda.get_device_name(0), "power_limit": power, "audio_s": audio_s,
-        "word_timestamps": args.words, "peak_memory_bytes_stage_call": peak,
+        "card": card, "audio_s": audio_s,
+        "options": "words" if args.words else "int4" if args.int4 else
+                   f"beam{BEAM}" if args.beam else "headline",
+        "peak_memory_bytes_stage_call": peak,
         "first_call_s": warm_s, "call_s": call_s,
         "audio_s_per_s": [audio_s / s for s in call_s], "stages": stages,
         "profiled_call_s": prof_s, "device_busy_s": busy,
         "device_idle_share_of_profiled_call": 1 - busy / prof_s,
         "n_kernel_launches": len(kernels),
+        "k5_device_s": k5_s, "k5_share_of_device_busy": k5_s / busy,
+        "widening_copies_device_s": copy_s, "widening_copies_share_of_device_busy": copy_s / busy,
         "top_kernels_ms": [[name[:90], us * 1e-3] for name, us in top],
     }
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

@@ -10,6 +10,8 @@
 
 and returns `{name: torch.Tensor}` for `Whisper.load_state_dict`. Only the
 tests produce such a tree with JAX; this module imports numpy and torch.
+Only the plain weights cross: the int8 and int4 decode forms are made from
+them by `Whisper.decoder_params_decode`, as the JAX package makes its own.
 """
 
 from typing import Dict

@@ -71,3 +71,9 @@ __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
+
+// the signed low nibble of a packed int4 byte (sign-extended to int); the
+// high nibble of a sign-extended byte is byte >> 4
+__device__ __forceinline__ int low_nibble(int byte) {
+  return static_cast<int>(static_cast<unsigned>(byte) << 28) >> 28;
+}

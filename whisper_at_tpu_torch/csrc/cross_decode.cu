@@ -44,6 +44,7 @@ __device__ float block_reduce(float v, float* scratch, bool is_max) {
   return r;
 }
 
+template <int BITS>
 __global__ void __launch_bounds__(THREADS)
     cross_decode_kernel(const bf16* __restrict__ q, const int8_t* __restrict__ kq,
                         const float* __restrict__ ks, const int8_t* __restrict__ vq,
@@ -61,17 +62,26 @@ __global__ void __launch_bounds__(THREADS)
   for (int i = tid; i < G * DH; i += THREADS) qs[i] = __bfloat162float(q[qrow0 * DH + i]);
   __syncthreads();
 
-  const int8_t* kbase = kq + (size_t)a * Ta_pad * D + h * DH;
+  const int row_bytes = D * BITS / 8;  // bytes of one key / value row
+  const int8_t* kbase = kq + (size_t)a * Ta_pad * row_bytes + h * (DH * BITS / 8);
   const float* ksr = ks + ((size_t)a * H + h) * Ta_pad;
   for (int t = tid; t < Ta_pad; t += THREADS) {
-    const int4* kp = reinterpret_cast<const int4*>(kbase + (size_t)t * D);
+    const int4* kp = reinterpret_cast<const int4*>(kbase + (size_t)t * row_bytes);
     float kf[DH];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < DH * BITS / 128; ++i) {
       const int4 w = kp[i];
       const int8_t* e = reinterpret_cast<const int8_t*>(&w);
 #pragma unroll
-      for (int j = 0; j < 16; ++j) kf[i * 16 + j] = static_cast<float>(e[j]);
+      for (int j = 0; j < 16; ++j) {
+        if constexpr (BITS == 8) {
+          kf[i * 16 + j] = static_cast<float>(e[j]);
+        } else {
+          const int byte = e[j];
+          kf[i * 32 + 2 * j] = static_cast<float>(low_nibble(byte));
+          kf[i * 32 + 2 * j + 1] = static_cast<float>(byte >> 4);
+        }
+      }
     }
     const float sc = ksr[t], bb = bias[t];
     for (int gi = 0; gi < G; ++gi) {
@@ -102,7 +112,7 @@ __global__ void __launch_bounds__(THREADS)
   }
   __syncthreads();
 
-  const int8_t* vbase = vq + (size_t)a * Ta_pad * D + h * DH;
+  const int8_t* vbase = vq + (size_t)a * Ta_pad * row_bytes + h * (DH * BITS / 8);
   const int dq = (tid & 15) * 4;  // this thread's 4 columns of the head
   const int rg = tid >> 4;        // its key-row group
   for (int g0 = 0; g0 < G; g0 += GC) {
@@ -111,8 +121,16 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
     for (int i = 0; i < GC; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
     for (int t = rg; t < Ta_pad; t += ROW_GROUPS) {
-      const char4 c = *reinterpret_cast<const char4*>(vbase + (size_t)t * D + dq);
-      const float v0 = c.x, v1 = c.y, v2 = c.z, v3 = c.w;
+      float v0, v1, v2, v3;
+      if constexpr (BITS == 8) {
+        const char4 c = *reinterpret_cast<const char4*>(vbase + (size_t)t * row_bytes + dq);
+        v0 = c.x, v1 = c.y, v2 = c.z, v3 = c.w;
+      } else {
+        const char2 c = *reinterpret_cast<const char2*>(vbase + (size_t)t * row_bytes + dq / 2);
+        const int lo = c.x, hi = c.y;
+        v0 = static_cast<float>(low_nibble(lo)), v1 = static_cast<float>(lo >> 4);
+        v2 = static_cast<float>(low_nibble(hi)), v3 = static_cast<float>(hi >> 4);
+      }
 #pragma unroll
       for (int i = 0; i < GC; ++i) {
         if (i < gn) {
@@ -148,6 +166,29 @@ extern "C" int cross_decode_smem_bytes(int G, int Ta_pad) {
                           ((size_t)G * Ta_pad + (size_t)G * DH + ROW_GROUPS * GC * DH));
 }
 
+namespace {
+
+template <int BITS>
+int launch(const void* q, const void* kq, const void* ks, const void* vq, const void* vs,
+           const void* bias, void* out, int A, int H, int G, int Ta_pad, void* stream) {
+  static int configured = 0;
+  const int smem = cross_decode_smem_bytes(G, Ta_pad);
+  if (smem > configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        cross_decode_kernel<BITS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = smem;
+  }
+  cross_decode_kernel<BITS><<<dim3(H, A), THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const int8_t*>(kq),
+      static_cast<const float*>(ks), static_cast<const int8_t*>(vq),
+      static_cast<const float*>(vs), static_cast<const float*>(bias),
+      static_cast<float*>(out), H, G, Ta_pad);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
 // q [A, H*G, 64] bf16 (head-major rows, pre-scaled by 64^-0.5);
 // kq, vq [A, Ta_pad, H*64] int8; ks, vs [A, H, Ta_pad] fp32; bias [Ta_pad];
 // out [A, H*G, 64] fp32.
@@ -155,18 +196,13 @@ extern "C" int cross_decode_bf16(const void* q, const void* kq, const void* ks,
                                  const void* vq, const void* vs, const void* bias,
                                  void* out, int A, int H, int G, int Ta_pad,
                                  void* stream) {
-  static int configured = 0;
-  const int smem = cross_decode_smem_bytes(G, Ta_pad);
-  if (smem > configured) {
-    cudaError_t e = cudaFuncSetAttribute(
-        cross_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    configured = smem;
-  }
-  cross_decode_kernel<<<dim3(H, A), THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const int8_t*>(kq),
-      static_cast<const float*>(ks), static_cast<const int8_t*>(vq),
-      static_cast<const float*>(vs), static_cast<const float*>(bias),
-      static_cast<float*>(out), H, G, Ta_pad);
-  return static_cast<int>(cudaGetLastError());
+  return launch<8>(q, kq, ks, vq, vs, bias, out, A, H, G, Ta_pad, stream);
+}
+
+// The int4 entry: the same arguments, kq and vq packed int8 [A, Ta_pad, H*32].
+extern "C" int cross_decode4_bf16(const void* q, const void* kq, const void* ks,
+                                  const void* vq, const void* vs, const void* bias,
+                                  void* out, int A, int H, int G, int Ta_pad,
+                                  void* stream) {
+  return launch<4>(q, kq, ks, vq, vs, bias, out, A, H, G, Ta_pad, stream);
 }

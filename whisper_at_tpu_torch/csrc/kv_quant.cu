@@ -9,6 +9,11 @@
 // K4's input: K and V are row-major int8 [B, Ta_pad, H*64] (the 64 codes of
 // one (position, head) are contiguous) and the scales fp32 [B, H, Ta_pad].
 // Rows t >= Ta get zero codes and zero scales.
+// The int4 entry (kv_quant4_bf16, bits = 4 of the TPU kernel, qmax 7 at
+// kv_quant.py:123) runs the same GEMM; its epilogue quantizes to [-7, 7] and
+// writes packed bytes [B, Ta_pad, D/2] in the pack4 layout of
+// models/layers.py (adjacent pairs along D, low nibble first): one thread
+// holds a (position, head)'s 64 codes, so it packs its own pairs.
 // What bounds it on the H100: 2 * 2*B*Ta*D*D = 2.4e11 FLOP per layer at
 // large-v1 batch 24 (0.24 ms at 989 TFLOP/s) against ~0.23 GB of bytes
 // (0.07 ms), so it is compute-bound. The design keeps the bf16 projection
@@ -21,6 +26,7 @@ namespace {
 
 constexpr int LDY = gemm::BN + 8;  // padded bf16 row of the staged tile
 
+template <int BITS>
 __global__ void __launch_bounds__(gemm::THREADS)
     kv_quant_kernel(const bf16* __restrict__ xa, const bf16* __restrict__ wk,
                     const bf16* __restrict__ wv, const bf16* __restrict__ bv,
@@ -91,22 +97,51 @@ __global__ void __launch_bounds__(gemm::THREADS)
       amax = fmaxf(amax, fabsf(vals[i * 8 + j]));
     }
   }
-  const float scale = __fadd_rn(__fdiv_rn(amax, 127.f), 1e-12f);
-  int8_t* dst = (is_v ? vq : kq) + ((size_t)b * Ta_pad + t) * D + n0 + hh * 64;
+  constexpr float QMAX = BITS == 8 ? 127.f : 7.f;
+  const float scale = __fadd_rn(__fdiv_rn(amax, QMAX), 1e-12f);
+  auto code = [&](int i) -> int {
+    const float q = fminf(fmaxf(rintf(__fdiv_rn(vals[i], scale)), -QMAX), QMAX);
+    return valid ? static_cast<int>(q) : 0;
+  };
+  if constexpr (BITS == 8) {
+    int8_t* dst = (is_v ? vq : kq) + ((size_t)b * Ta_pad + t) * D + n0 + hh * 64;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    uint4 w;
-    int8_t* e = reinterpret_cast<int8_t*>(&w);
+    for (int i = 0; i < 4; ++i) {
+      uint4 w;
+      int8_t* e = reinterpret_cast<int8_t*>(&w);
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const float q = fminf(fmaxf(rintf(__fdiv_rn(vals[i * 16 + j], scale)), -127.f), 127.f);
-      e[j] = valid ? static_cast<int8_t>(q) : static_cast<int8_t>(0);
+      for (int j = 0; j < 16; ++j) e[j] = static_cast<int8_t>(code(i * 16 + j));
+      reinterpret_cast<uint4*>(dst)[i] = w;
     }
-    reinterpret_cast<uint4*>(dst)[i] = w;
+  } else {  // 64 codes -> 32 bytes, low nibble = even element
+    int8_t* dst = (is_v ? vq : kq) + ((size_t)b * Ta_pad + t) * (D / 2) + (n0 + hh * 64) / 2;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      uint4 w;
+      uint8_t* e = reinterpret_cast<uint8_t*>(&w);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int lo = code(i * 32 + 2 * j), hi = code(i * 32 + 2 * j + 1);
+        e[j] = static_cast<uint8_t>((lo & 0xF) | ((hi & 0xF) << 4));
+      }
+      reinterpret_cast<uint4*>(dst)[i] = w;
+    }
   }
   const int H = D / 64;
   const int head = n0 / 64 + hh;
   (is_v ? vs : ks)[((size_t)b * H + head) * Ta_pad + t] = valid ? scale : 0.f;
+}
+
+template <int BITS>
+int launch(const void* xa, const void* wk, const void* wv, const void* bv, void* kq,
+           void* ks, void* vq, void* vs, int B, int Ta, int Ta_pad, int D, void* stream) {
+  dim3 grid(2 * D / gemm::BN, B * Ta_pad / gemm::BM);
+  kv_quant_kernel<BITS><<<grid, gemm::THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(xa), static_cast<const bf16*>(wk),
+      static_cast<const bf16*>(wv), static_cast<const bf16*>(bv),
+      static_cast<int8_t*>(kq), static_cast<float*>(ks),
+      static_cast<int8_t*>(vq), static_cast<float*>(vs), Ta, Ta_pad, D);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -118,11 +153,13 @@ extern "C" int kv_quant_bf16(const void* xa, const void* wk, const void* wv,
                              const void* bv, void* kq, void* ks, void* vq,
                              void* vs, int B, int Ta, int Ta_pad, int D,
                              void* stream) {
-  dim3 grid(2 * D / gemm::BN, B * Ta_pad / gemm::BM);
-  kv_quant_kernel<<<grid, gemm::THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(xa), static_cast<const bf16*>(wk),
-      static_cast<const bf16*>(wv), static_cast<const bf16*>(bv),
-      static_cast<int8_t*>(kq), static_cast<float*>(ks),
-      static_cast<int8_t*>(vq), static_cast<float*>(vs), Ta, Ta_pad, D);
-  return static_cast<int>(cudaGetLastError());
+  return launch<8>(xa, wk, wv, bv, kq, ks, vq, vs, B, Ta, Ta_pad, D, stream);
+}
+
+// The int4 entry: the same arguments, kq and vq packed int8 [B, Ta_pad, D/2].
+extern "C" int kv_quant4_bf16(const void* xa, const void* wk, const void* wv,
+                              const void* bv, void* kq, void* ks, void* vq,
+                              void* vs, int B, int Ta, int Ta_pad, int D,
+                              void* stream) {
+  return launch<4>(xa, wk, wv, bv, kq, ks, vq, vs, B, Ta, Ta_pad, D, stream);
 }

@@ -1,12 +1,14 @@
-"""Decoding: options, the logit filters as tensor ops, and greedy/temperature
-sampling as a Python loop over steps on the device.
+"""Decoding: options, the logit filters as tensor ops, greedy/temperature
+sampling (with best-of groups) and beam search with patience, each as a
+Python loop over steps on the device.
 
-Counterpart of `whisper_at_tpu/decoding.py` (greedy path). The JAX package
-runs the whole loop as one device program; here each step is one decoder
-pass and a few tensor ops, and the host checks every few steps whether
-every row has finished. Beam search, best-of sampling, speculative
-decoding and the int4 options are not ported yet and raise
-NotImplementedError.
+Counterpart of `whisper_at_tpu/decoding.py`. The JAX package runs each loop
+as one device program; here each step is one decoder pass and a few tensor
+ops, and the host checks every few steps whether the loop has ended. The
+quantization options are ported at both widths: int8 or int4 cross K/V
+(`kv_bits`, K3 + K4), decoder weights (`weight_bits`; int4 through K5) and
+self cache (`self_kv_bits`). Speculative decoding (`draft_model`) is not
+ported yet and raises NotImplementedError.
 """
 
 from dataclasses import dataclass, field, replace
@@ -16,7 +18,13 @@ import numpy as np
 import torch
 
 from .audio import CHUNK_LENGTH
-from .models.decoder import decoder_forward, init_cache, precompute_cross_kv, project_logits
+from .models.decoder import (
+    CrossKV,
+    decoder_forward,
+    init_cache,
+    precompute_cross_kv,
+    project_logits,
+)
 from .tokenizer import Tokenizer, get_tokenizer
 from .utils import compression_ratio
 
@@ -42,10 +50,10 @@ class DecodingOptions:
     without_timestamps: bool = False
     max_initial_timestamp: Optional[float] = 1.0
     fp16: bool = True                 # bfloat16 compute
-    kv_quant: bool = False            # int8 cross-attention K/V (K3 + K4)
-    weight_quant: bool = False        # int8 decoder matmul weights
-    weight_bits: int = 8
-    self_kv_quant: bool = False       # int8 self-attention cache
+    kv_quant: bool = False            # quantized cross-attention K/V (K3 + K4)
+    weight_quant: bool = False        # quantized decoder matmul weights
+    weight_bits: int = 8              # 8, or 4 (K5)
+    self_kv_quant: bool = False       # quantized self-attention cache
     self_kv_bits: int = 8
     kv_layout: Optional[str] = None   # only the fused K3/K4 layout is ported
     kv_bits: int = 8
@@ -105,21 +113,18 @@ def apply_logit_filters(logits: torch.Tensor, t: int, prev1: torch.Tensor,
     return logits.masked_fill((ts_mass > max_text)[:, None] & (idx < ts_begin), NEG_INF)
 
 
-def greedy_sample_loop(params, cross, buf: torch.Tensor, *, pad: int, sot_slot: int,
-                       suppress_mask: torch.Tensor, temperature: float,
-                       generator: Optional[torch.Generator], prefill: int, max_steps: int,
-                       n_head: int, compute_dtype, eot: int, ts_begin: int,
-                       blank_token: int, no_speech_id: Optional[int],
-                       max_initial_ts_index: Optional[int], suppress_blank: bool,
-                       with_ts_rules: bool, self_kv_quant: bool = False):
-    """Sample up to max_steps tokens into buf [B, total] (slots from
-    `prefill` on), greedily at temperature 0. Returns (buf, sum_logprobs [B],
-    no_speech_probs [B], steps run); rows keep EOT once they emit it."""
+def _prefill(params, cross: CrossKV, buf: torch.Tensor, *, pad: int, sot_slot: int,
+             prefill: int, n_head: int, compute_dtype, no_speech_id: Optional[int],
+             self_kv_quant: bool, self_kv_bits: int):
+    """The prefill pass of a sampling loop over buf [B, total]: its self
+    cache, the no-speech probabilities [B] at the SOT slot and the logits
+    [B, V] of the last prompt slot. Rows of a group (beams, best-of samples)
+    share their audio row of `cross`."""
     b, total = buf.shape
     group = b // cross.k.shape[1]
     d = params.token_embedding.weight.shape[1]
     cache = init_cache(len(params.blocks), b, total, d, compute_dtype, n_head,
-                       quantize=self_kv_quant, device=buf.device)
+                       quantize=self_kv_quant, bits=self_kv_bits, device=buf.device)
     hidden = decoder_forward(params, buf[:, :prefill], cross, cache, 0, pad, n_head,
                              compute_dtype, group=group)
     if no_speech_id is not None:
@@ -127,7 +132,26 @@ def greedy_sample_loop(params, cross, buf: torch.Tensor, *, pad: int, sot_slot: 
         no_speech = torch.softmax(sot_logits, dim=-1)[:, no_speech_id]
     else:
         no_speech = torch.full((b,), float("nan"), device=buf.device)
-    logits = project_logits(params, hidden[:, -1:])[:, 0]
+    return cache, no_speech, project_logits(params, hidden[:, -1:])[:, 0]
+
+
+def greedy_sample_loop(params, cross, buf: torch.Tensor, *, pad: int, sot_slot: int,
+                       suppress_mask: torch.Tensor, temperature: float,
+                       generator: Optional[torch.Generator], prefill: int, max_steps: int,
+                       n_head: int, compute_dtype, eot: int, ts_begin: int,
+                       blank_token: int, no_speech_id: Optional[int],
+                       max_initial_ts_index: Optional[int], suppress_blank: bool,
+                       with_ts_rules: bool, self_kv_quant: bool = False,
+                       self_kv_bits: int = 8):
+    """Sample up to max_steps tokens into buf [B, total] (slots from
+    `prefill` on), greedily at temperature 0. Returns (buf, sum_logprobs [B],
+    no_speech_probs [B], steps run); rows keep EOT once they emit it."""
+    b = buf.shape[0]
+    group = b // cross.k.shape[1]
+    cache, no_speech, logits = _prefill(
+        params, cross, buf, pad=pad, sot_slot=sot_slot, prefill=prefill, n_head=n_head,
+        compute_dtype=compute_dtype, no_speech_id=no_speech_id, self_kv_quant=self_kv_quant,
+        self_kv_bits=self_kv_bits)
 
     sum_lp = torch.zeros(b, device=buf.device)
     last_ts = torch.full((b,), -1, dtype=buf.dtype, device=buf.device)
@@ -161,6 +185,143 @@ def greedy_sample_loop(params, cross, buf: torch.Tensor, *, pad: int, sot_slot: 
     return buf, sum_lp, no_speech, t
 
 
+def _beam_topk(filtered: torch.Tensor, k: int):
+    """The k largest of each row of [B, V] logits, equal values in index
+    order (as `lax.top_k` orders them; the step-0 mask and the suppressed
+    tokens make many values equal at -inf)."""
+    values, index = torch.sort(filtered, dim=-1, descending=True, stable=True)
+    return values[:, :k], index[:, :k]
+
+
+def beam_sample_loop(params, cross, buf: torch.Tensor, *, pad: int, sot_slot: int,
+                     suppress_mask: torch.Tensor, prefill: int, max_steps: int,
+                     beam_size: int, max_candidates: int, n_head: int, compute_dtype,
+                     eot: int, ts_begin: int, blank_token: int, no_speech_id: Optional[int],
+                     max_initial_ts_index: Optional[int], suppress_blank: bool,
+                     with_ts_rules: bool, self_kv_quant: bool = False,
+                     self_kv_bits: int = 8):
+    """Beam search with patience over buf [A*K, total] (K = beam_size rows
+    per audio, the prompt repeated), the JAX package's tensorized
+    bookkeeping step for step: each beam proposes its top K+1
+    continuations, the candidates of an audio are sorted by score (stably),
+    EOT candidates fill a finished buffer of max_candidates rows, the first
+    K others become the new beams and every self-cache tensor is reordered
+    along its row axis. At step 0 only beam 0 proposes (the beams share
+    their prefix).
+
+    The loop ends when every audio's finished buffer is full or after
+    max_steps. The host looks every FINISH_CHECK_EVERY steps; a step taken
+    after the end changes nothing, so the result is the JAX loop's.
+    Returns (finished tokens [A, C, total], finished scores [A, C],
+    finished counts [A], final beams [A*K, total], their sum logprobs
+    [A*K], no-speech probabilities [A*K], steps run), all on the device."""
+    dev = buf.device
+    bk, total = buf.shape
+    k = beam_size
+    n_cand = k * (k + 1)
+    a = bk // k
+    c_cap = max_candidates
+    group = bk // cross.k.shape[1]
+    cache, no_speech, logits = _prefill(
+        params, cross, buf, pad=pad, sot_slot=sot_slot, prefill=prefill, n_head=n_head,
+        compute_dtype=compute_dtype, no_speech_id=no_speech_id, self_kv_quant=self_kv_quant,
+        self_kv_bits=self_kv_bits)
+
+    # the finished buffer; its extra row c_cap takes the candidates that
+    # do not fit (the JAX scatter drops them)
+    fin_tokens = torch.zeros((a, c_cap + 1, total), dtype=buf.dtype, device=dev)
+    fin_scores = torch.full((a, c_cap + 1), NEG_INF, device=dev)
+    fin_count = torch.zeros(a, dtype=torch.long, device=dev)
+    sum_lp = torch.zeros(bk, device=dev)
+    last_ts = torch.full((bk,), -1, dtype=buf.dtype, device=dev)
+    n_steps = torch.zeros((), dtype=torch.long, device=dev)
+    step0_mask = torch.where(torch.arange(n_cand, device=dev) < k + 1, 0.0, NEG_INF)
+    pos = torch.arange(n_cand, device=dev).expand(a, n_cand)
+    audio_base = (torch.arange(a, device=dev) * k)[:, None]
+    t = 0
+    while t < max_steps:
+        ended = (fin_count >= c_cap).all()
+        if t and t % FINISH_CHECK_EVERY == 0 and bool(ended):
+            break
+        running = ~ended  # the JAX loop's condition, on the device
+        slot = prefill + t
+        filtered = apply_logit_filters(
+            logits, t, buf[:, slot - 1], buf[:, max(slot - 2, 0)], last_ts,
+            suppress_mask, eot=eot, ts_begin=ts_begin, blank_token=blank_token,
+            max_initial_ts_index=max_initial_ts_index, suppress_blank=suppress_blank,
+            with_ts_rules=with_ts_rules)
+        # rank on the raw logits, normalize only the K+1 winners
+        top_raw, top_tok = _beam_topk(filtered, k + 1)
+        top_lp = top_raw - torch.logsumexp(filtered, dim=-1, keepdim=True)
+        cand = (sum_lp[:, None] + top_lp).reshape(a, n_cand)
+        cand_tok = top_tok.reshape(a, n_cand)
+        if t == 0:
+            cand = cand + step0_mask
+        order = torch.argsort(-cand, dim=1, stable=True)
+        s_scores = cand.gather(1, order)
+        s_toks = cand_tok.gather(1, order)
+        s_src = order // (k + 1)  # source beam of each candidate
+        valid = torch.isfinite(s_scores)
+        is_eot = (s_toks == eot) & valid
+
+        # new beams: the first K non-EOT candidates in score order
+        keep = valid & ~is_eot
+        sel = torch.argsort(torch.where(keep, pos, pos + n_cand), dim=1, stable=True)[:, :k]
+        new_tok = s_toks.gather(1, sel).reshape(-1)
+        new_score = s_scores.gather(1, sel).reshape(-1)
+        flat_src = (audio_base + s_src.gather(1, sel)).reshape(-1)
+
+        # finished buffer: EOT candidates appended until it is full, each
+        # its source beam's row with EOT at this slot
+        fpos = fin_count[:, None] + torch.cumsum(is_eot, dim=1) - 1
+        fpos = torch.where(is_eot & (fpos < c_cap), fpos, c_cap)
+        src_rows = buf.reshape(a, k, total).gather(1, s_src[:, :, None].expand(a, n_cand, total))
+        src_rows[:, :, slot] = eot
+        fin_tokens.scatter_(1, fpos[:, :, None].expand(a, n_cand, total), src_rows)
+        fin_scores.scatter_(1, fpos, s_scores)
+        fin_count = torch.clamp(fin_count + is_eot.sum(dim=1), max=c_cap)
+
+        # reorder the state along the beam axis
+        new_buf = buf.index_select(0, flat_src)
+        new_buf[:, slot] = new_tok
+        buf = torch.where(running, new_buf, buf)
+        sum_lp = torch.where(running, new_score, sum_lp)
+        n_steps = n_steps + running.long()
+        last_ts = last_ts.index_select(0, flat_src)
+        last_ts = torch.where(new_tok >= ts_begin, new_tok, last_ts)
+        cache.select_rows(flat_src)
+        t += 1
+        if t < max_steps:
+            hidden = decoder_forward(params, new_tok[:, None], cross, cache, slot, pad,
+                                     n_head, compute_dtype, group=group)
+            logits = project_logits(params, hidden)[:, 0]
+    return (fin_tokens[:, :c_cap], fin_scores[:, :c_cap], fin_count, buf, sum_lp,
+            no_speech, n_steps)
+
+
+class MaximumLikelihoodRanker:
+    """Highest sum logprob under length normalisation, or under the GNMT
+    length penalty ((5 + length) / 6) ** alpha when one is given."""
+
+    def __init__(self, length_penalty: Optional[float]):
+        self.length_penalty = length_penalty
+
+    def rank(self, tokens: List[List[List[int]]], sum_logprobs: List[List[float]]) -> List[int]:
+        def scores(logprobs, lengths):
+            result = []
+            for logprob, length in zip(logprobs, lengths):
+                if self.length_penalty is None:
+                    penalty = length
+                else:
+                    penalty = ((5 + length) / 6) ** self.length_penalty
+                # an empty sample ranks below any other instead of dividing by 0
+                result.append(logprob / penalty if penalty != 0 else -np.inf)
+            return result
+
+        lengths = [[len(t) for t in s] for s in tokens]
+        return [int(np.argmax(scores(p, l))) for p, l in zip(sum_logprobs, lengths)]
+
+
 def _prefill_bucket(n: int) -> int:
     return next((b for b in PREFILL_BUCKETS if n <= b), n)
 
@@ -172,12 +333,14 @@ class DecodingTask:
         tokenizer = get_tokenizer(model.is_multilingual, language=options.language or "en",
                                   task=options.task)
         self.tokenizer: Tokenizer = tokenizer
+        self.n_group = options.beam_size or options.best_of or 1
         self.n_ctx = model.dims.n_text_ctx
         self.sample_len = options.sample_len or self.n_ctx // 2
         self.sot_sequence = (tokenizer.sot_sequence_including_notimestamps
                              if options.without_timestamps else tokenizer.sot_sequence)
         self.initial_tokens: Tuple[int, ...] = self._get_initial_tokens()
         self.sot_index = self.initial_tokens.index(tokenizer.sot)
+        self.sequence_ranker = MaximumLikelihoodRanker(options.length_penalty)
         self.with_ts_rules = not options.without_timestamps
         self.blank_token = tokenizer.encode(" ")[0]
         self.max_initial_ts_index = None
@@ -191,18 +354,21 @@ class DecodingTask:
 
     @staticmethod
     def _verify_options(options: DecodingOptions) -> DecodingOptions:
-        if options.beam_size is not None or options.patience is not None:
-            raise NotImplementedError("beam search is not ported yet")
-        if options.best_of is not None:
-            raise NotImplementedError("best_of sampling is not ported yet")
-        if options.draft_model is not None:
-            raise NotImplementedError("speculative decoding is not ported yet")
-        if options.kv_bits != 8 or options.weight_bits != 8 or options.self_kv_bits != 8:
-            raise NotImplementedError("only 8-bit quantization is ported")
-        if options.kv_layout not in (None, "fused"):
-            raise NotImplementedError("only the fused cross-KV layout is ported")
+        if options.beam_size is not None and options.best_of is not None:
+            raise ValueError("beam_size and best_of can't be given together")
+        if options.temperature == 0 and options.best_of is not None:
+            raise ValueError("best_of with greedy sampling (T=0) is not compatible")
+        if options.patience is not None and options.beam_size is None:
+            raise ValueError("patience requires beam_size to be given")
         if options.length_penalty is not None and not 0 <= options.length_penalty <= 1:
             raise ValueError("length_penalty (alpha) should be a value between 0 and 1")
+        for name in ("kv_bits", "weight_bits", "self_kv_bits"):
+            if getattr(options, name) not in (8, 4):
+                raise ValueError(f"{name} must be 8 or 4")
+        if options.draft_model is not None:
+            raise NotImplementedError("speculative decoding is not ported yet")
+        if options.kv_layout not in (None, "fused"):
+            raise NotImplementedError("only the fused cross-KV layout is ported")
         return options
 
     def _get_initial_tokens(self) -> Tuple[int, ...]:
@@ -241,6 +407,18 @@ class DecodingTask:
                 buf[:, pad + self.sot_index + 1] = lang_tokens
         return languages, probs
 
+    def _loop_args(self, pad: int, prefill: int, max_steps: int, compute_dtype) -> dict:
+        """The keyword arguments both sampling loops take."""
+        options, tokenizer = self.options, self.tokenizer
+        return dict(
+            pad=pad, sot_slot=pad + self.sot_index, suppress_mask=self.suppress_mask,
+            prefill=prefill, max_steps=max_steps, n_head=self.model.dims.n_text_head,
+            compute_dtype=compute_dtype, eot=tokenizer.eot, ts_begin=tokenizer.timestamp_begin,
+            blank_token=self.blank_token, no_speech_id=tokenizer.no_speech,
+            max_initial_ts_index=self.max_initial_ts_index,
+            suppress_blank=bool(options.suppress_blank), with_ts_rules=self.with_ts_rules,
+            self_kv_quant=options.self_kv_quant, self_kv_bits=options.self_kv_bits)
+
     def run(self, mel: torch.Tensor) -> List[DecodingResult]:
         options, tokenizer, model = self.options, self.tokenizer, self.model
         n_audio = mel.shape[0]
@@ -260,39 +438,86 @@ class DecodingTask:
                     for f, a, lang, p in zip(audio_features, at_features, languages,
                                              language_probs)]
 
+        # a group (beams, best-of samples) repeats the token rows only; the
+        # cross K/V keep one row per audio and the group folds into the
+        # cross-attention's query axis
+        n_group = self.n_group
+        buf = buf.repeat_interleave(n_group, dim=0)
         params = model.decoder_params_decode(options.weight_quant, options.weight_bits)
         cross = precompute_cross_kv(params, audio_features, model.dims.n_text_head,
-                                    compute_dtype, quantize=options.kv_quant)
-        generator = None
-        if options.temperature > 0:
-            generator = torch.Generator(device=mel.device)
-            generator.manual_seed(int(np.random.randint(0, 2**31 - 1)))
-        buf, sum_lp, no_speech, _ = greedy_sample_loop(
-            params, cross, buf, pad=pad, sot_slot=pad + self.sot_index,
-            suppress_mask=self.suppress_mask, temperature=options.temperature,
-            generator=generator, prefill=prefill, max_steps=total - prefill,
-            n_head=model.dims.n_text_head, compute_dtype=compute_dtype,
-            eot=tokenizer.eot, ts_begin=tokenizer.timestamp_begin,
-            blank_token=self.blank_token, no_speech_id=tokenizer.no_speech,
-            max_initial_ts_index=self.max_initial_ts_index,
-            suppress_blank=bool(options.suppress_blank), with_ts_rules=self.with_ts_rules,
-            self_kv_quant=options.self_kv_quant)
+                                    compute_dtype, quantize=options.kv_quant,
+                                    bits=options.kv_bits)
+        loop_args = self._loop_args(pad, prefill, total - prefill, compute_dtype)
+        if options.beam_size is not None:
+            tokens, logprobs, no_speech = self._run_beam(params, cross, buf, loop_args)
+        else:
+            generator = None
+            if options.temperature > 0:
+                generator = torch.Generator(device=mel.device)
+                generator.manual_seed(int(np.random.randint(0, 2**31 - 1)))
+            buf, sum_lp, no_speech, _ = greedy_sample_loop(
+                params, cross, buf, temperature=options.temperature, generator=generator,
+                **loop_args)
+            sampled = buf[:, prefill:].cpu().numpy()
+            sum_lp = sum_lp.cpu().numpy()
+            rows = [self._until_eot(row) for row in sampled]
+            tokens = [rows[i * n_group:(i + 1) * n_group] for i in range(n_audio)]
+            logprobs = [[float(lp) for lp in sum_lp[i * n_group:(i + 1) * n_group]]
+                        for i in range(n_audio)]
+            no_speech = no_speech.float().cpu().numpy()[::n_group]
 
-        sampled = buf[:, prefill:].cpu().numpy()
-        sum_lp = sum_lp.cpu().numpy()
-        no_speech = no_speech.float().cpu().numpy()
+        selected = self.sequence_ranker.rank(tokens, logprobs)
         results = []
-        for i in range(n_audio):
-            row = np.append(sampled[i], tokenizer.eot)
-            tokens = row[:int(np.argmax(row == tokenizer.eot))].tolist()
-            text = tokenizer.decode(tokens).strip()
+        for i, pick in enumerate(selected):
+            text = tokenizer.decode(tokens[i][pick]).strip()
             results.append(DecodingResult(
                 audio_features=audio_features[i], audio_features_for_at=at_features[i],
-                language=languages[i], tokens=tokens, text=text,
-                avg_logprob=float(sum_lp[i]) / (len(tokens) + 1),
+                language=languages[i], tokens=tokens[i][pick], text=text,
+                avg_logprob=logprobs[i][pick] / (len(tokens[i][pick]) + 1),
                 no_speech_prob=float(no_speech[i]), temperature=options.temperature,
                 compression_ratio=compression_ratio(text)))
         return results
+
+    def _until_eot(self, row: np.ndarray) -> List[int]:
+        """A row of sampled tokens up to its first EOT (all of it if none)."""
+        row = np.append(row, self.tokenizer.eot)
+        return row[:int(np.argmax(row == self.tokenizer.eot))].tolist()
+
+    def _run_beam(self, params, cross, buf, loop_args: dict):
+        """Beam search, then the JAX package's host-side finalisation: the
+        finished sequences, topped up from the final beams in score order
+        when fewer than beam_size finished. Returns (tokens, sum logprobs)
+        per audio and candidate, and the no-speech probability per audio."""
+        beam_size = self.options.beam_size
+        max_candidates = round(beam_size * (self.options.patience or 1.0))
+        if max_candidates <= 0:
+            raise ValueError(f"Invalid beam size ({beam_size}) or patience "
+                             f"({self.options.patience})")
+        out = beam_sample_loop(params, cross, buf, beam_size=beam_size,
+                               max_candidates=max_candidates, **loop_args)
+        fin_tokens, fin_scores, fin_count, beams, beam_lp, no_speech, n_steps = (
+            x.float().cpu().numpy() if x.dtype.is_floating_point else x.cpu().numpy()
+            for x in out)
+        n_steps = int(n_steps)
+        prefill = loop_args["prefill"]
+
+        def slice_row(row) -> List[int]:
+            return self._until_eot(row[prefill:prefill + n_steps])
+
+        tokens, logprobs = [], []
+        for i in range(fin_count.shape[0]):
+            seqs = [slice_row(fin_tokens[i, c]) for c in range(int(fin_count[i]))]
+            scores = [float(fin_scores[i, c]) for c in range(int(fin_count[i]))]
+            if len(seqs) < beam_size:
+                group_lp = beam_lp[i * beam_size:(i + 1) * beam_size]
+                for j in np.argsort(group_lp)[::-1]:
+                    seqs.append(slice_row(beams[i * beam_size + int(j)]))
+                    scores.append(float(group_lp[int(j)]))
+                    if len(seqs) >= beam_size:
+                        break
+            tokens.append(seqs)
+            logprobs.append(scores)
+        return tokens, logprobs, no_speech[::beam_size]
 
 
 def detect_language_from_features(model, audio_features: torch.Tensor,

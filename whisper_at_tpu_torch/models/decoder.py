@@ -6,9 +6,11 @@ right-aligned into a fixed prefill bucket: slots [0, pad) are masked out and
 the position embedding is indexed by slot - pad.
 
 On the decode path the cross-attention K/V of every layer is precomputed
-once per batch, int8-quantized by K3 (`ops/kv_quant.py`), and read each
-step by K4 (`ops/cross_decode.py`) when heads x query rows <= 256, else by
-an einsum over the same layout.
+once per batch, int8- or int4-quantized by K3 (`ops/kv_quant.py`), and read
+each step by K4 (`ops/cross_decode.py`) when heads x query rows <= 256, else
+by an einsum over the same layout. The self cache can hold int8 or int4
+codes (plain PyTorch: the JAX package has no kernel for it). int4 codes are
+packed by `layers.pack4` everywhere.
 
 The full (non-incremental) forward, `decoder_forward_with_qk`, runs over
 whole token rows on the plain decoder weights: word timing reads the
@@ -22,8 +24,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..ops.cross_decode import cross_attention_int8, pad_bias
-from ..ops.kv_quant import pad_ta, project_quantize_kv, quantize_sym
+from ..ops.cross_decode import cross_attention_int4, cross_attention_int8, pad_bias
+from ..ops.kv_quant import pad_ta, project_quantize_kv, project_quantize_kv4, quantize_sym
 from .layers import (
     LayerNorm,
     Linear,
@@ -31,8 +33,10 @@ from .layers import (
     attention,
     gelu,
     normal_,
+    pack4,
     quantize_linear,
     reset_random_,
+    unpack4,
 )
 
 NEG_INF = float("-inf")
@@ -93,9 +97,9 @@ def fuse_decoder_blocks(decoder: TextDecoder) -> Parts:
 
 
 def quantize_decoder_blocks(fused: Parts, bits: int = 8) -> Parts:
-    """int8 per-output-channel weights for the decode loop's matmuls. The
-    cross-attention key/value projections stay full precision: their output
-    is quantized separately (K3)."""
+    """int8 (bits=8) or packed int4 (bits=4) per-output-channel weights for
+    the decode loop's matmuls. The cross-attention key/value projections
+    stay full precision: their output is quantized separately (K3)."""
     blocks = []
     for blk in fused.blocks:
         ca = blk.cross_attn
@@ -116,37 +120,50 @@ def quantize_decoder_blocks(fused: Parts, bits: int = 8) -> Parts:
 
 @dataclass
 class SelfKV:
-    """Self-attention cache [L, B, H, ctx, Dh]; with int8 codes, the scales
-    are fp32 [L, B, ctx, H] (one per row, slot and head)."""
+    """Self-attention cache [L, B, H, ctx, Dh] in the compute dtype
+    (bits None), or int8 codes (bits 8) or packed int4 codes [.., Dh/2]
+    (bits 4) with fp32 scales [L, B, ctx, H] (one per row, slot and head)."""
 
     k: torch.Tensor
     v: torch.Tensor
     k_scale: Optional[torch.Tensor] = None
     v_scale: Optional[torch.Tensor] = None
+    bits: Optional[int] = None
+
+    def select_rows(self, index: torch.Tensor) -> None:
+        """Reorder every cache tensor along its row axis (beam search):
+        codes, scales and packed nibbles alike."""
+        for name in ("k", "v", "k_scale", "v_scale"):
+            t = getattr(self, name)
+            if t is not None:
+                setattr(self, name, t.index_select(1, index))
 
 
 @dataclass
 class CrossKV:
-    """Cross-attention K/V of every layer. int8: codes [L, A, Ta_pad, D],
-    scales [L, A, H, Ta_pad], additive pad bias [Ta_pad] (K3/K4 layout);
-    plain: [L, A, Ta, D] in the compute dtype."""
+    """Cross-attention K/V of every layer. Quantized (bits 8 or 4): codes
+    [L, A, Ta_pad, D * bits / 8] (int4 packed), scales [L, A, H, Ta_pad],
+    additive pad bias [Ta_pad] (K3/K4 layout); plain (bits None):
+    [L, A, Ta, D] in the compute dtype."""
 
     k: torch.Tensor
     v: torch.Tensor
     k_scale: Optional[torch.Tensor] = None
     v_scale: Optional[torch.Tensor] = None
     bias: Optional[torch.Tensor] = None
+    bits: Optional[int] = None
 
 
 def init_cache(n_layer: int, batch: int, n_ctx: int, n_state: int, dtype,
-               n_head: int, quantize: bool = False, device=None) -> SelfKV:
+               n_head: int, quantize: bool = False, bits: int = 8, device=None) -> SelfKV:
     shape = (n_layer, batch, n_head, n_ctx, n_state // n_head)
     if quantize:
+        codes = shape[:-1] + (shape[-1] * bits // 8,)
         scales = (n_layer, batch, n_ctx, n_head)
-        return SelfKV(torch.zeros(shape, dtype=torch.int8, device=device),
-                      torch.zeros(shape, dtype=torch.int8, device=device),
+        return SelfKV(torch.zeros(codes, dtype=torch.int8, device=device),
+                      torch.zeros(codes, dtype=torch.int8, device=device),
                       torch.zeros(scales, dtype=torch.float32, device=device),
-                      torch.zeros(scales, dtype=torch.float32, device=device))
+                      torch.zeros(scales, dtype=torch.float32, device=device), bits)
     return SelfKV(torch.zeros(shape, dtype=dtype, device=device),
                   torch.zeros(shape, dtype=dtype, device=device))
 
@@ -164,8 +181,10 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 
 def precompute_cross_kv(params: Parts, xa: torch.Tensor, n_head: int,
-                        compute_dtype=torch.float32, quantize: bool = False) -> CrossKV:
-    """Cross-attention K/V of every layer from the encoded audio xa [A, Ta, D]."""
+                        compute_dtype=torch.float32, quantize: bool = False,
+                        bits: int = 8) -> CrossKV:
+    """Cross-attention K/V of every layer from the encoded audio xa [A, Ta, D];
+    quantized by K3 at `bits` (8 or 4) when asked."""
     xa = xa.to(compute_dtype).contiguous()
     a, ta, d = xa.shape
     n_layer = len(params.blocks)
@@ -177,15 +196,16 @@ def precompute_cross_kv(params: Parts, xa: torch.Tensor, n_head: int,
             v[i] = blk.cross_attn.value(xa)
         return CrossKV(k, v)
     ta_pad = pad_ta(ta)
-    k = torch.empty((n_layer, a, ta_pad, d), dtype=torch.int8, device=xa.device)
+    k = torch.empty((n_layer, a, ta_pad, d * bits // 8), dtype=torch.int8, device=xa.device)
     v = torch.empty_like(k)
     ks = torch.empty((n_layer, a, n_head, ta_pad), dtype=torch.float32, device=xa.device)
     vs = torch.empty_like(ks)
+    project = project_quantize_kv4 if bits == 4 else project_quantize_kv
     for i, blk in enumerate(params.blocks):
         ca = blk.cross_attn
-        project_quantize_kv(xa, ca.key.weight, ca.value.weight, ca.value.bias,
-                            out=(k[i], ks[i], v[i], vs[i]))
-    return CrossKV(k, v, ks, vs, pad_bias(ta, ta_pad, xa.device))
+        project(xa, ca.key.weight, ca.value.weight, ca.value.bias,
+                out=(k[i], ks[i], v[i], vs[i]))
+    return CrossKV(k, v, ks, vs, pad_bias(ta, ta_pad, xa.device), bits)
 
 
 def _cross_attn_apply(blk, h: torch.Tensor, cross: CrossKV, layer: int, n_head: int,
@@ -202,16 +222,18 @@ def _cross_attn_apply(blk, h: torch.Tensor, cross: CrossKV, layer: int, n_head: 
             a, n_head, group * s, dh)
     rows = qh.shape[2]
     scale = dh ** -0.5
-    if cross.k_scale is not None:
+    if cross.bits is not None:
         ck, cv = cross.k[layer], cross.v[layer]
         ks, vs = cross.k_scale[layer], cross.v_scale[layer]
         ta_pad = ck.shape[1]
         if n_head * rows <= KERNEL_MAX_ROWS:
             q_rows = (qh * scale).reshape(a, n_head * rows, dh).to(compute_dtype)
-            out = cross_attention_int8(q_rows.contiguous(), ck, ks, cv, vs,
-                                       cross.bias, n_head)
+            kernel = cross_attention_int4 if cross.bits == 4 else cross_attention_int8
+            out = kernel(q_rows.contiguous(), ck, ks, cv, vs, cross.bias, n_head)
             attn = out.reshape(a, n_head, rows, dh).to(compute_dtype)
         else:
+            if cross.bits == 4:
+                ck, cv = unpack4(ck), unpack4(cv)
             k4 = ck.reshape(a, ta_pad, n_head, dh).permute(0, 2, 3, 1)
             qk = (torch.matmul(qh.float(), k4.to(compute_dtype).float())
                   * ks[:, :, None, :] * scale + cross.bias)
@@ -250,25 +272,29 @@ def decoder_forward(params: Parts, tokens: torch.Tensor, cross: CrossKV,
     allowed = ((slots >= pad) & (slots <= qpos)) | (slots == qpos)
     mask = torch.zeros(allowed.shape, device=dev).masked_fill(~allowed, NEG_INF)
 
-    quantized = cache.k_scale is not None
+    bits = cache.bits
     for i, blk in enumerate(params.blocks):
         q, k_new, v_new = blk.attn.qkv(blk.attn_ln(x)).chunk(3, dim=-1)
         qh = _split_heads(q, n_head)
         kh, vh = _split_heads(k_new, n_head), _split_heads(v_new, n_head)
         scale = qh.shape[-1] ** -0.5
-        if quantized:
+        if bits is not None:
+            # quantize the new slots, write their codes in place, read the
+            # live prefix back (unpacked for int4)
+            live = []
             for codes, scales, new in ((cache.k, cache.k_scale, kh),
                                        (cache.v, cache.v_scale, vh)):
-                nq, ns = quantize_sym(new, dim=-1)
-                codes[i, :, :, write_pos:end] = nq
+                nq, ns = quantize_sym(new, dim=-1, bits=bits)
+                codes[i, :, :, write_pos:end] = pack4(nq) if bits == 4 else nq
                 scales[i, :, write_pos:end] = ns[..., 0].transpose(1, 2)
+                prefix = codes[i, :, :, :end]
+                live.append((unpack4(prefix) if bits == 4 else prefix).to(compute_dtype))
             k_s = cache.k_scale[i, :, :end].transpose(1, 2)  # [B, H, end]
             v_s = cache.v_scale[i, :, :end].transpose(1, 2)
-            k_all = cache.k[i, :, :, :end].to(compute_dtype)
-            qk = (torch.matmul(qh.float(), k_all.float().transpose(-1, -2))
+            qk = (torch.matmul(qh.float(), live[0].float().transpose(-1, -2))
                   * k_s[:, :, None, :] * scale + mask)
             w = (torch.softmax(qk, dim=-1) * v_s[:, :, None, :]).to(compute_dtype)
-            attn = torch.matmul(w, cache.v[i, :, :, :end].to(compute_dtype))
+            attn = torch.matmul(w, live[1])
         else:
             cache.k[i, :, :, write_pos:end] = kh.to(cache.k.dtype)
             cache.v[i, :, :, write_pos:end] = vh.to(cache.v.dtype)

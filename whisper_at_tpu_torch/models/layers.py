@@ -7,6 +7,15 @@ weights in torch's [out, in] layout. The arithmetic mirrors the JAX package:
 layer norm in an fp32 island, attention logits and softmax in fp32, matmul
 weights cast to the activation dtype (bf16 on the card, fp32 in the CPU
 tests).
+
+int4 payloads (decode weights, the int4 self cache, the int4 cross K/V) all
+use one packing, `pack4`: int8 bytes holding two signed 4-bit codes in
+[-7, 7], adjacent pairs along the tensor's contiguous last axis, low nibble
+first (byte j of a row = element 2j in bits 0-3, element 2j+1 in bits 4-7).
+Every CUDA kernel that reads or writes int4 (K3, K4, K5) refers to this
+convention. The codes and scales are those of the JAX package; only the
+byte layout differs (the JAX package packs halves of an axis, a TPU layout
+constraint).
 """
 
 import math
@@ -84,6 +93,26 @@ class Linear(nn.Module):
             uniform_(self.bias, -std, std, gen)
 
 
+QMAX = {8: 127.0, 4: 7.0}  # symmetric code range at each width
+
+
+def pack4(q: torch.Tensor) -> torch.Tensor:
+    """Integer codes in [-8, 7], [..., N] with N even -> int8 [..., N/2]:
+    adjacent pairs along the last axis, low nibble first (module docstring).
+    Three tensor ops on int8 (a shift wraps within the byte): the decode
+    loop packs every new self-cache slot."""
+    q8 = q.to(torch.int8)
+    return (q8[..., 0::2] & 0xF) | (q8[..., 1::2] << 4)
+
+
+def unpack4(p: torch.Tensor) -> torch.Tensor:
+    """Inverse of `pack4`: int8 [..., N/2] -> int8 codes [..., N], each
+    nibble sign-extended by shifts on int32 (the high one by the byte's own
+    sign)."""
+    p32 = p.to(torch.int32)
+    return torch.stack([(p32 << 28) >> 28, p32 >> 4], dim=-1).flatten(-2).to(torch.int8)
+
+
 class QuantLinear(nn.Module):
     """int8 weights with per-output-channel fp32 scales:
     y = (x @ w_q^T.to(x.dtype)) * w_s.to(x.dtype) (+ bias)."""
@@ -102,14 +131,49 @@ class QuantLinear(nn.Module):
         return y
 
 
-def quantize_linear(lin: Linear, bits: int = 8) -> QuantLinear:
-    """Symmetric per-output-channel int8 quantization of a linear layer
-    (scale = amax over the input axis / 127 + 1e-12)."""
-    if bits != 8:
-        raise NotImplementedError("only 8-bit weight quantization is ported")
+class QuantLinear4(nn.Module):
+    """int4 weights, packed by `pack4` along the input axis of the [out, in]
+    weight (w_p int8 [out, in/2]), with per-output-channel fp32 scales:
+    y = bf16(x @ unpack4(w_p)^T) * w_s.to(x.dtype) (+ bias), the JAX
+    package's rounding order. bf16 rows on the card, at most 256 of them
+    (the decode steps and prefills), go through K5 (`ops/w4_matmul.py`),
+    which streams the packed bytes; anything else unpacks the weight and
+    calls torch.matmul, as the JAX package leaves that case to XLA."""
+
+    def __init__(self, w_p: torch.Tensor, w_s: torch.Tensor,
+                 bias: Optional[torch.Tensor]):
+        super().__init__()
+        self.register_buffer("w_p", w_p)
+        self.register_buffer("w_s", w_s)
+        self.bias = bias
+
+    def forward(self, x):
+        lead, k = x.shape[:-1], x.shape[-1]
+        m = math.prod(lead)
+        from ..ops import w4_matmul as k5  # ops import this module
+
+        if x.is_cuda and x.dtype == torch.bfloat16 and m <= k5.MAX_ROWS:
+            y = k5.w4_matmul(x.reshape(m, k), self.w_p).to(x.dtype).reshape(*lead, -1)
+        else:
+            y = torch.matmul(x, unpack4(self.w_p).to(x.dtype).t())
+        y = y * self.w_s.to(x.dtype)
+        if self.bias is not None:
+            y = y + self.bias.to(x.dtype)
+        return y
+
+
+def quantize_linear(lin: Linear, bits: int = 8):
+    """Symmetric per-output-channel quantization of a linear layer:
+    scale = amax over the input axis * fp32(1 / qmax) + 1e-12, the
+    JAX package's `_quantize_w` as XLA compiles it (a multiply by the
+    reciprocal), so the scales are its own bit for bit; qmax 127 for bits=8
+    (a QuantLinear) and 7 for bits=4 (a QuantLinear4, codes packed)."""
+    qmax = QMAX[bits]
     w = lin.weight.detach().float()
-    scale = w.abs().amax(dim=1) / 127.0 + 1e-12
-    q = torch.clamp(torch.round(w / scale[:, None]), -127, 127).to(torch.int8)
+    scale = w.abs().amax(dim=1) * (1.0 / qmax) + 1e-12
+    q = torch.clamp(torch.round(w / scale[:, None]), -qmax, qmax).to(torch.int8)
+    if bits == 4:
+        return QuantLinear4(pack4(q), scale, lin.bias)
     return QuantLinear(q, scale, lin.bias)
 
 

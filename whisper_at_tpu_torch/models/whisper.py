@@ -85,8 +85,9 @@ class Whisper(nn.Module):
 
     def decoder_params_decode(self, weight_quant: bool = False,
                               weight_bits: int = 8) -> Parts:
-        """Decode-form decoder parameters (fused q/k/v; int8 weights when
-        weight_quant), built once per form."""
+        """Decode-form decoder parameters (fused q/k/v; with weight_quant,
+        int8 weights at weight_bits=8 or packed int4 at weight_bits=4), built
+        from the plain weights once per width and cached."""
         key = weight_bits if weight_quant else 0
         if 0 not in self._decode_params:
             self._decode_params[0] = fuse_decoder_blocks(self.decoder)

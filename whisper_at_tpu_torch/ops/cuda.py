@@ -4,7 +4,10 @@ Each `csrc/<name>.cu` is compiled by `nvcc` for `sm_90a` into its own shared
 library with a plain C interface, loaded with `ctypes`. A library is built
 at first use (or all at once, in parallel, by `build_all`) into
 `build/kernels/` at the repository root, under a name that hashes the
-sources and flags, so a changed source is never served a stale binary.
+sources and flags, so a changed source is never served a stale binary. One
+source may hold several entries (K3 and K4 have an int8 and an int4 entry),
+each a `CudaKernel` of its own with its own launch count; they share the
+library.
 
 Every C entry returns `cudaGetLastError()` after its launches; `CudaKernel`
 raises when that is not 0 and otherwise adds one to its launch count. The
@@ -133,11 +136,15 @@ class CudaKernel:
 
 
 def build_all() -> float:
-    """Compile every registered kernel, all nvcc processes at once; returns
-    the wall seconds it took (0 when everything was already built)."""
+    """Compile every registered kernel's library, one nvcc process per
+    source, all at once; returns the wall seconds it took (0 when everything
+    was already built)."""
     t0 = time.perf_counter()
-    procs = [(k, k.start_build()) for k in KERNELS.values()]
-    for kernel, proc in procs:
+    procs = {}
+    for k in KERNELS.values():
+        if k.library_path() not in procs:
+            procs[k.library_path()] = (k, k.start_build())
+    for kernel, proc in procs.values():
         kernel.finish_build(proc)
     return time.perf_counter() - t0
 

@@ -1,28 +1,33 @@
-"""K3: one decoder layer's cross-attention K/V projection + int8 quantization.
+"""K3: one decoder layer's cross-attention K/V projection + int8 or int4
+quantization.
 
-Replaces `whisper_at_tpu/ops/kv_quant.py::project_quantize_kv` (Pallas) and
-carries `_quantize_sym` (`whisper_at_tpu/models/decoder.py:241`). The CUDA
-source is `csrc/kv_quant.cu`; its header gives the bound and the design.
+Replaces `whisper_at_tpu/ops/kv_quant.py::project_quantize_kv` (Pallas),
+bits = 8 (`KERNEL`) and bits = 4 (`KERNEL4`, its own entry so that its
+launch count shows the int4 path ran it), and carries `_quantize_sym`
+(`whisper_at_tpu/models/decoder.py:241`). The CUDA source is
+`csrc/kv_quant.cu`; its header gives the bound and the design.
 
 Layout, chosen together with K4 (`ops/cross_decode.py`): codes are row-major
 int8 [B, Ta_pad, H*64], so the 64 codes of one (position, head) are
-contiguous, and scales are fp32 [B, H, Ta_pad]. Positions t >= Ta carry
-zero codes and zero scales.
+contiguous, and scales are fp32 [B, H, Ta_pad]. The int4 codes are the same
+rows packed by `models/layers.pack4`: [B, Ta_pad, H*32] bytes. Positions
+t >= Ta carry zero codes and zero scales.
 """
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
 
-from ..models.layers import linear
+from ..models.layers import QMAX, linear, pack4
 from .cuda import CudaKernel, ptr, require_cuda, stream_handle
 
-KERNEL = CudaKernel(
-    "kv_quant", "kv_quant.cu", "kv_quant_bf16",
-    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-    replaces="whisper_at_tpu/ops/kv_quant.py:102",
-)
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+KERNEL = CudaKernel("kv_quant", "kv_quant.cu", "kv_quant_bf16", _ARGTYPES,
+                    replaces="whisper_at_tpu/ops/kv_quant.py:102")
+KERNEL4 = CudaKernel("kv_quant4", "kv_quant.cu", "kv_quant4_bf16", _ARGTYPES,
+                     replaces="whisper_at_tpu/ops/kv_quant.py:102")
 HEAD_DIM = 64
 LANE = 128
 
@@ -32,34 +37,49 @@ def pad_ta(ta: int) -> int:
     return -(-ta // LANE) * LANE
 
 
-def quantize_sym(x: torch.Tensor, dim: int = -1) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Symmetric int8 quantization with one scale per slice along `dim`:
-    scale = amax / 127 + 1e-12, q = clip(round(x / scale), -127, 127).
-    Returns (int8 codes, fp32 scales with `dim` kept as size 1)."""
+def quantize_sym(x: torch.Tensor, dim: int = -1,
+                 bits: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric quantization with one scale per slice along `dim`:
+    scale = amax / qmax + 1e-12, q = clip(round(x / scale), -qmax, qmax),
+    qmax 127 (bits=8) or 7 (bits=4). Returns (int8 codes, unpacked, and fp32
+    scales with `dim` kept as size 1)."""
+    qmax = QMAX[bits]
     x32 = x.float()
-    scale = x32.abs().amax(dim=dim, keepdim=True) / 127.0 + 1e-12
-    q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
+    scale = x32.abs().amax(dim=dim, keepdim=True) / _divisor(qmax, x.device) + 1e-12
+    q = torch.clamp(torch.round(x32 / scale), -qmax, qmax).to(torch.int8)
     return q, scale
 
 
-def _allocate(b: int, ta_pad: int, d: int, device):
-    codes = lambda: torch.empty((b, ta_pad, d), device=device, dtype=torch.int8)
+@functools.lru_cache(maxsize=None)
+def _divisor(qmax: float, device) -> torch.Tensor:
+    """qmax as a 0-dim tensor on `device`. PyTorch on CUDA divides by a
+    Python number as a multiply by its reciprocal, one fp32 ulp off the
+    quotient about half the time; with bf16 inputs the codes then flip on
+    exact ties (0.2% of int4 codes). A divisor tensor on the card gives the
+    true quotient, as the CPU and K3's kernel compute it."""
+    return torch.tensor(qmax, dtype=torch.float32, device=device)
+
+
+def _allocate(b: int, ta_pad: int, d: int, device, bits: int = 8):
+    codes = lambda: torch.empty((b, ta_pad, d * bits // 8), device=device, dtype=torch.int8)
     scales = lambda: torch.empty((b, d // HEAD_DIM, ta_pad), device=device,
                                  dtype=torch.float32)
     return codes(), scales(), codes(), scales()
 
 
-def project_quantize_kv_plain(xa, wk, wv, bv, out: Optional[tuple] = None):
-    """The same function in plain PyTorch (see `project_quantize_kv`)."""
+def project_quantize_kv_plain(xa, wk, wv, bv, out: Optional[tuple] = None, bits: int = 8):
+    """The same function in plain PyTorch (see `project_quantize_kv`; with
+    bits=4, `project_quantize_kv4`)."""
     b, ta, d = xa.shape
     ta_pad = pad_ta(ta)
     h = d // HEAD_DIM
     if out is None:
-        out = _allocate(b, ta_pad, d, xa.device)
+        out = _allocate(b, ta_pad, d, xa.device, bits)
     kq, ks, vq, vs = out
     for y, q_out, s_out in ((linear(xa, wk), kq, ks), (linear(xa, wv, bv), vq, vs)):
-        q, s = quantize_sym(y.reshape(b, ta, h, HEAD_DIM), dim=-1)
-        q_out[:, :ta] = q.reshape(b, ta, d)
+        q, s = quantize_sym(y.reshape(b, ta, h, HEAD_DIM), dim=-1, bits=bits)
+        q = q.reshape(b, ta, d)
+        q_out[:, :ta] = pack4(q) if bits == 4 else q
         q_out[:, ta:] = 0
         s_out[:, :, :ta] = s[..., 0].transpose(1, 2)
         s_out[:, :, ta:] = 0
@@ -73,8 +93,19 @@ def project_quantize_kv(xa: torch.Tensor, wk: torch.Tensor, wv: torch.Tensor,
     bv [D]. Returns (k codes, k scales, v codes, v scales) as
     int8 [B, Ta_pad, D], fp32 [B, H, Ta_pad], int8, fp32 — written into
     `out` when given (views of a preallocated stack)."""
+    return _project_quantize(xa, wk, wv, bv, out, 8)
+
+
+def project_quantize_kv4(xa: torch.Tensor, wk: torch.Tensor, wv: torch.Tensor,
+                         bv: torch.Tensor, out: Optional[tuple] = None):
+    """`project_quantize_kv` at 4 bits (qmax 7): the codes come back packed
+    by `pack4`, int8 [B, Ta_pad, D/2]; the scales as before."""
+    return _project_quantize(xa, wk, wv, bv, out, 4)
+
+
+def _project_quantize(xa, wk, wv, bv, out, bits: int):
     if not xa.is_cuda:
-        return project_quantize_kv_plain(xa, wk, wv, bv, out)
+        return project_quantize_kv_plain(xa, wk, wv, bv, out, bits)
     b, ta, d = xa.shape
     ta_pad = pad_ta(ta)
     if d % LANE:
@@ -89,15 +120,17 @@ def project_quantize_kv(xa: torch.Tensor, wk: torch.Tensor, wv: torch.Tensor,
             raise ValueError(f"{name} must be [{d}, {d}]")
     require_cuda(bv, torch.bfloat16, "bv", 1)
     if out is None:
-        out = _allocate(b, ta_pad, d, xa.device)
+        out = _allocate(b, ta_pad, d, xa.device, bits)
     kq, ks, vq, vs = out
-    for name, t, dtype, shape in (("kq", kq, torch.int8, (b, ta_pad, d)),
+    codes = (b, ta_pad, d * bits // 8)
+    for name, t, dtype, shape in (("kq", kq, torch.int8, codes),
                                   ("ks", ks, torch.float32, (b, d // HEAD_DIM, ta_pad)),
-                                  ("vq", vq, torch.int8, (b, ta_pad, d)),
+                                  ("vq", vq, torch.int8, codes),
                                   ("vs", vs, torch.float32, (b, d // HEAD_DIM, ta_pad))):
         require_cuda(t, dtype, name, 3)
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-    KERNEL.launch(ptr(xa), ptr(wk), ptr(wv), ptr(bv), ptr(kq), ptr(ks), ptr(vq),
-                  ptr(vs), b, ta, ta_pad, d, stream_handle(xa.device))
+    kernel = KERNEL4 if bits == 4 else KERNEL
+    kernel.launch(ptr(xa), ptr(wk), ptr(wv), ptr(bv), ptr(kq), ptr(ks), ptr(vq), ptr(vs),
+                  b, ta, ta_pad, d, stream_handle(xa.device))
     return kq, ks, vq, vs
