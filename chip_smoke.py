@@ -20,23 +20,33 @@ before and read just after, and checks its output:
     full-length text (`full_text_opts`; K1-K4, K4 at G = 5 on the steps);
 (6) the headline call with word timestamps, full-length text
     (`words_opts`; K1-K4 and K6);
-(7) the sequential `transcribe` with word timestamps over 60 s (K1-K4, K6).
+(7) the sequential `transcribe` with word timestamps over 60 s (K1-K4, K6);
+(8) the switches calls, the JAX package's alternative kernels: (a) the
+    headline with WHISPER_AT_TPU_ENC_ATTN=flash, WHISPER_AT_TPU_CROSS_DECODE
+    =stream and `models.decoder.FUSED_MLP` (K7, K2, K3, K8-int8, K10; not
+    K1 or K4), (b) the same switches with int4 cross K/V, bf16 weights and
+    the int8 self cache (K7, K2, K3-int4, K8, K10-int4; not K4-int4).
 Each path's kernel inputs are also recorded (`Recorder`) and every kernel
-is held against its plain version on them: K1-K5 and the int4 entries at
-each shape the path gave them, K6 on every call.
+is held against its plain version on them: K1-K5, K7, K8, K10 and the int4
+entries at each shape the path gave them, K6 on every call. K9 has no path
+(nothing in the JAX package calls it): it is held and timed on the
+headline's own cross-K/V at one query row per head.
 
 Printed, in order: the card's name and power limit (nvidia-smi), the build
 time, one line per kernel check (K5 one per weight shape and row count),
 one line per path (throughput, launch counts, peak memory, the seek loop's
 window count) with its held kernel inputs, the headline's, the int4
-call's and the beam call's throughput side by side, then a
+call's, the beam call's and the two switches calls' throughput side by
+side, then a
 JSON line with every kernel's numbers and, last, the `{"ok": true,
 "device": ...}` line. Any failed phase raises and exits non-zero before the
 result lines. Without a CUDA card it exits non-zero at once.
 `tools/profile_torch_headline.py` takes its audio and options from here.
 """
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -81,6 +91,10 @@ SEQUENTIAL_OPTS = dict({k: v for k, v in HEADLINE_OPTS.items() if k != "max_batc
 DTW_ROWS = (101, 87, 64, 33)
 DTW_FRAMES = 1500
 DTW_WORST = 448
+# the switches calls: the JAX package's alternative kernels (K7, K8, K10)
+SWITCH_ENV = {"WHISPER_AT_TPU_ENC_ATTN": "flash", "WHISPER_AT_TPU_CROSS_DECODE": "stream"}
+SWITCHES_B_OPTS = dict(HEADLINE_OPTS, kv_bits=4, weight_quant=False)
+K8_ROWS = (BATCH, BATCH * BEAM)  # a greedy step, a beam-5 step
 
 
 def card_line() -> str:
@@ -274,9 +288,78 @@ def k5_compare(x, wp):
     return err, f"{tol:.3e}"
 
 
+def k7_compare(q, k, v, n_head):
+    """K7 against its plain version per element, as K1: one bf16 ulp
+    (<= 2^-7 |x|) plus 2^-10 absolute."""
+    from whisper_at_tpu_torch.ops import enc_flash
+
+    out = enc_flash.enc_flash(q, k, v, n_head)
+    ref = enc_flash.enc_flash_plain(q, k, v, n_head)
+    torch.cuda.synchronize()
+    diff = (out.float() - ref.float()).abs()
+    worst = float((diff / (2 ** -10 + 2 ** -7 * ref.float().abs())).max())
+    if not worst <= 1.0:
+        raise AssertionError(f"K7 {tuple(q.shape)}: |out - ref| exceeds 2^-10 + 2^-7 |ref| "
+                             f"by {worst:.3f}x")
+    return float(diff.max()), f"|out - ref| <= 2^-10 + 2^-7 |ref| per element, worst at " \
+                              f"{worst:.3f} of it"
+
+
+def k8_compare(x, fc1, fc2):
+    """K8 (bf16 or int8 entry, as the modules are) against its plain
+    version: 2^-7 of max |ref| plus 1e-3 (an h entry rounded to bf16 the
+    other way moves an output by one ulp of h times its fc2 row)."""
+    from whisper_at_tpu_torch.ops import fused_mlp
+
+    w1, s1, b1 = fused_mlp.linear_weights(fc1)
+    w2, s2, b2 = fused_mlp.linear_weights(fc2)
+    out = fused_mlp.fused_mlp(x, fc1, fc2)
+    ref = fused_mlp.fused_mlp_plain(x, w1, s1, b1, w2, s2, b2)
+    torch.cuda.synchronize()
+    err = max_err(out, ref)
+    tol = 1e-3 + 2 ** -7 * float(ref.float().abs().max())
+    check(f"K8{'' if s1 is None else '-int8'} {tuple(x.shape)}", err, tol)
+    return err, f"{tol:.3e}"
+
+
+def k9_compare(q, kq, ks, vq, vs, n_head, s):
+    """K9 against its plain version: both fp32 to the bf16 output, which
+    may round the other way; 2^-7 |ref| (one bf16 ulp) + 1e-5 per element."""
+    from whisper_at_tpu_torch.ops import flash_decode
+
+    out = flash_decode.flash_decode_cross(q, kq, ks, vq, vs, n_head, s)
+    ref = flash_decode.flash_decode_cross_plain(q, kq, ks, vq, vs, n_head, s)
+    torch.cuda.synchronize()
+    diff = (out.float() - ref.float()).abs()
+    worst = float((diff / (1e-5 + 2 ** -7 * ref.float().abs())).max())
+    if not worst <= 1.0:
+        raise AssertionError(f"K9 {tuple(q.shape)}: |out - ref| exceeds 1e-5 + 2^-7 |ref| "
+                             f"by {worst:.3f}x")
+    return float(diff.max()), f"|out - ref| <= 1e-5 + 2^-7 |ref| per element, worst at " \
+                              f"{worst:.3f} of it"
+
+
+def k10_compare(q, kq, ks, vq, vs, bias, n_head, bits: int = 8):
+    """K10 (or its int4 entry) against its plain version, which rounds at
+    the same points: 1e-4 + 1e-3 max |ref|, as K4."""
+    from whisper_at_tpu_torch.ops import cross_decode_stream as cs
+
+    kernel, plain = ((cs.cross_attention_stream4, cs.cross_attention_stream4_plain) if bits == 4
+                     else (cs.cross_attention_stream, cs.cross_attention_stream_plain))
+    out = kernel(q, kq, ks, vq, vs, bias, n_head)
+    ref = plain(q, kq, ks, vq, vs, bias, n_head)
+    torch.cuda.synchronize()
+    err = max_err(out, ref)
+    tol = 1e-4 + 1e-3 * float(ref.abs().max())
+    check(f"K10{'-int4' if bits == 4 else ''} {tuple(q.shape)}", err, tol)
+    return err, f"{tol:.3e}"
+
+
 COMPARE = {"K1": k1_compare, "K2": k2_compare, "K3": lambda *a: k3_compare(*a)[:2],
            "K4": k4_compare, "K3-int4": lambda *a: k3_compare(*a, bits=4)[:2],
-           "K4-int4": lambda *a: k4_compare(*a, bits=4), "K5": k5_compare}
+           "K4-int4": lambda *a: k4_compare(*a, bits=4), "K5": k5_compare,
+           "K7": k7_compare, "K8": k8_compare, "K10": k10_compare,
+           "K10-int4": lambda *a: k10_compare(*a, bits=4)}
 
 
 def k5_rows(gen, dev) -> dict:
@@ -324,9 +407,21 @@ def k5_rows(gen, dev) -> dict:
                 bound=bound(total["ops"], total["bytes"], PEAK_BF16_FLOPS))
 
 
-def kernel_checks(card: str) -> dict:
-    """Each kernel against its plain version at the headline shapes."""
-    from whisper_at_tpu_torch.ops import cross_decode, dtw, enc_attention, enc_mlp, kv_quant
+def kernel_checks(card: str):
+    """Each kernel against its plain version at the headline shapes.
+    Returns the rows by kernel id and K9's launches in this phase."""
+    from whisper_at_tpu_torch.models.layers import Linear, quantize_linear
+    from whisper_at_tpu_torch.ops import (
+        cross_decode,
+        cross_decode_stream,
+        dtw,
+        enc_attention,
+        enc_flash,
+        enc_mlp,
+        flash_decode,
+        fused_mlp,
+        kv_quant,
+    )
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -354,6 +449,15 @@ def kernel_checks(card: str) -> dict:
         plain_ms=time_ms(lambda: enc_attention.enc_attention_plain(q, k, v, H), 3, 1),
         library_ms=time_ms(lambda: sdpa(qh, kh, vh), 10),
         bound=bound(flops, nbytes, PEAK_BF16_FLOPS))
+
+    # ---- K7 flash encoder attention on the same inputs, beside K1 and SDPA -- #
+    err, tol = k7_compare(q, k, v, H)
+    rows["K7"] = dict(
+        module=enc_flash, err=err, tol=f"{tol}; K1 {rows['K1']['ms']:.4f} ms on these inputs",
+        ms=time_ms(lambda: enc_flash.enc_flash(q, k, v, H), 10),
+        plain_ms=time_ms(lambda: enc_flash.enc_flash_plain(q, k, v, H), 3, 1),
+        library_ms=time_ms(lambda: sdpa(qh, kh, vh), 10),
+        bound=bound(flops, nbytes, PEAK_BF16_FLOPS))
     del q, k, v, qh, kh, vh
 
     # ---- K2 encoder MLP half-block: x [24, 1500, 1280], 4D = 5120 ---------- #
@@ -375,6 +479,34 @@ def kernel_checks(card: str) -> dict:
                     2.0 * (2 * m * D + 2 * D * f) + 4.0 * (3 * D + f),
                     PEAK_BF16_FLOPS))
     del x, args, w1, w2
+
+    # ---- K8 decode MLP: x [M, 1280], W1 [5120, 1280], W2 [1280, 5120] ----- #
+    fc1, fc2 = Linear(D, f, device=dev, dtype=bf), Linear(f, D, device=dev, dtype=bf)
+    fc1.reset_random(gen)
+    fc2.reset_random(gen)
+    for name, pair in (("K8", (fc1, fc2)),
+                       ("K8-int8", (quantize_linear(fc1), quantize_linear(fc2)))):
+        errs, tols, ms = [], [], {}
+        for m in K8_ROWS:
+            x = randn(m, D)
+            e, tol = k8_compare(x, *pair)
+            errs.append(e)
+            ms[m] = graph_ms(lambda: fused_mlp.fused_mlp(x, *pair))
+            unfused = graph_ms(lambda: pair[1](torch.nn.functional.gelu(pair[0](x))))
+            tols.append(f"M={m}: err {e:.3e} <= {tol}, kernel {ms[m]:.4f} ms, the unfused "
+                        f"MLP it replaces {unfused:.4f} ms")
+        x = randn(BATCH, D)
+        wbytes = (2.0 if name == "K8" else 1.0) * 2 * D * f + (0 if name == "K8" else 4.0 * (f + D))
+        rows[name] = dict(
+            module=fused_mlp, kernel=fused_mlp.KERNEL if name == "K8" else fused_mlp.KERNEL_INT8,
+            err=max(errs), tol="; ".join(tols) + " (device times from CUDA graphs)",
+            ms=ms[BATCH],
+            plain_ms=graph_ms(lambda: fused_mlp.fused_mlp_plain(
+                x, *fused_mlp.linear_weights(pair[0]), *fused_mlp.linear_weights(pair[1])), 5, 2),
+            library_ms=None,
+            bound=bound(4.0 * BATCH * D * f,
+                        wbytes + 2.0 * (f + D) + 2 * 2.0 * BATCH * D, PEAK_BF16_FLOPS))
+    del fc1, fc2, pair, x
 
     # ---- K3 cross-KV projection + int8: xa [24, 1500, 1280] -------------- #
     xa = randn(BATCH, T_ENC, D)
@@ -413,6 +545,24 @@ def kernel_checks(card: str) -> dict:
                     2 * BATCH * T_ENC * D + 2 * 4.0 * BATCH * H * T_ENC
                     + 4.0 * T_ENC + 2.0 * BATCH * H * DH + 4.0 * BATCH * H * DH,
                     PEAK_FP32_FLOPS))
+
+    # ---- K9 split-S flash decode on K3's output, one query row per head --- #
+    q9 = randn(BATCH * H, DH)
+    before = flash_decode.KERNEL.launches
+    err, tol = k9_compare(q9, kq, ks, vq, vs, H, T_ENC)
+    rows["K9"] = dict(
+        module=flash_decode, err=err, tol=f"{tol}; K4 {rows['K4']['ms']:.4f} ms at G=1",
+        ms=time_ms(lambda: flash_decode.flash_decode_cross(q9, kq, ks, vq, vs, H, T_ENC), 50),
+        plain_ms=time_ms(lambda: flash_decode.flash_decode_cross_plain(
+            q9, kq, ks, vq, vs, H, T_ENC), 5, 1),
+        library_ms=None,
+        bound=bound(4.0 * BATCH * H * T_ENC * DH,
+                    2 * BATCH * T_ENC * D + 2 * 4.0 * BATCH * H * T_ENC + 2 * 2.0 * BATCH * H * DH,
+                    PEAK_FP32_FLOPS))
+    k9_launches = flash_decode.KERNEL.launches - before
+
+    # ---- K10 streamed cross decode on the same inputs: G = 5 and G = 1 ----- #
+    rows["K10"] = k10_row(randn, (kq, ks, vq, vs, bias), 8, rows["K4"])
     del kern, kq, ks, vq, vs
 
     # ---- K3-int4: the same projection, packed int4 codes [24, 1536, 640] --- #
@@ -446,6 +596,7 @@ def kernel_checks(card: str) -> dict:
                     2 * BATCH * T_ENC * D / 2 + 2 * 4.0 * BATCH * H * T_ENC
                     + 4.0 * T_ENC + 2.0 * BATCH * H * DH + 4.0 * BATCH * H * DH,
                     PEAK_FP32_FLOPS))
+    rows["K10-int4"] = k10_row(randn, (kp, ks, vp, vs, bias), 4, rows["K4-int4"])
     del kern, kp, ks, vp, vs, xa
 
     # ---- K5 int4-weight matmul: the decode loop's four weight shapes ------- #
@@ -471,7 +622,31 @@ def kernel_checks(card: str) -> dict:
               f"library_ms={lib} bound_ms={r['bound'][0]:.4f} ({r['bound'][1]}) "
               f"[{card}]", flush=True)
     torch.cuda.empty_cache()
-    return rows
+    return rows, k9_launches
+
+
+def k10_row(randn, kv, bits: int, k4_row: dict) -> dict:
+    """K10 (or K10-int4) on K3's output at a beam step (G = 5) and the
+    greedy step (G = 1), timed at G = 1 beside K4 on the same inputs; the
+    bound is K4's (the same function over the same bytes)."""
+    from whisper_at_tpu_torch.ops import cross_decode_stream as cs
+
+    kq, ks, vq, vs, bias = kv
+    stream, plain, kernel = ((cs.cross_attention_stream4, cs.cross_attention_stream4_plain,
+                              cs.KERNEL4) if bits == 4 else
+                             (cs.cross_attention_stream, cs.cross_attention_stream_plain,
+                              cs.KERNEL))
+    errs, tols = [], []
+    for groups in (BEAM, 1):
+        qd = randn(BATCH, H * groups, DH, scale=DH ** -0.5)
+        e, tol = k10_compare(qd, kq, ks, vq, vs, bias, H, bits)
+        errs.append(e)
+        tols.append(f"G={groups}: err {e:.3e} <= {tol}")
+    tols.append(f"K4{'-int4' if bits == 4 else ''} {k4_row['ms']:.4f} ms at G=1")
+    return dict(module=cs, kernel=kernel, err=max(errs), tol="; ".join(tols),
+                ms=time_ms(lambda: stream(qd, kq, ks, vq, vs, bias, H), 50),
+                plain_ms=time_ms(lambda: plain(qd, kq, ks, vq, vs, bias, H), 5, 1),
+                library_ms=None, bound=k4_row["bound"])
 
 
 def synth_audio(seconds: int, seed: int) -> np.ndarray:
@@ -483,19 +658,35 @@ def synth_audio(seconds: int, seed: int) -> np.ndarray:
 
 
 def kernels_of(names) -> list:
-    """The registered kernel names of kernel ids (K1 .. K6, K3-int4, K4-int4)."""
-    from whisper_at_tpu_torch.ops import cross_decode, dtw, enc_attention, enc_mlp, kv_quant
-    from whisper_at_tpu_torch.ops import w4_matmul
+    """The registered kernel names of kernel ids (K1 .. K10 and the int4 /
+    int8 entries)."""
+    from whisper_at_tpu_torch.ops import (
+        cross_decode,
+        cross_decode_stream,
+        dtw,
+        enc_attention,
+        enc_flash,
+        enc_mlp,
+        flash_decode,
+        fused_mlp,
+        kv_quant,
+        w4_matmul,
+    )
 
     kernels = {"K1": enc_attention.KERNEL, "K2": enc_mlp.KERNEL, "K3": kv_quant.KERNEL,
                "K4": cross_decode.KERNEL, "K3-int4": kv_quant.KERNEL4,
-               "K4-int4": cross_decode.KERNEL4, "K5": w4_matmul.KERNEL, "K6": dtw.KERNEL}
+               "K4-int4": cross_decode.KERNEL4, "K5": w4_matmul.KERNEL, "K6": dtw.KERNEL,
+               "K7": enc_flash.KERNEL, "K8": fused_mlp.KERNEL, "K8-int8": fused_mlp.KERNEL_INT8,
+               "K9": flash_decode.KERNEL, "K10": cross_decode_stream.KERNEL,
+               "K10-int4": cross_decode_stream.KERNEL4}
     return [kernels[n].name for n in names]
 
 
 HEADLINE_KERNELS = ("K1", "K2", "K3", "K4")
 INT4_KERNELS = ("K1", "K2", "K3-int4", "K4-int4", "K5")
 WORDS_KERNELS = HEADLINE_KERNELS + ("K6",)
+SWITCHES_A_KERNELS = ("K7", "K2", "K3", "K8-int8", "K10")
+SWITCHES_B_KERNELS = ("K7", "K2", "K3-int4", "K8", "K10-int4")
 
 
 class Recorder:
@@ -503,7 +694,8 @@ class Recorder:
     place the path calls it, by one that keeps a copy of its inputs and then
     launches as before (the wrapper counts its launch once, as always):
     every call of K6, and the first call of each other kernel at each
-    distinct set of shapes. `inputs[kernel id]` lists the argument tuples."""
+    distinct set of shapes (K8: and weight type). `inputs[kernel id]` lists
+    the argument tuples (K8's modules are kept, not copied)."""
 
     def __init__(self):
         from whisper_at_tpu_torch.models import decoder, encoder
@@ -514,7 +706,10 @@ class Recorder:
                       "K4": (decoder, "cross_attention_int8"),
                       "K3-int4": (decoder, "project_quantize_kv4"),
                       "K4-int4": (decoder, "cross_attention_int4"),
-                      "K5": (w4_matmul, "w4_matmul"), "K6": (dtw, "dtw_trace")}
+                      "K5": (w4_matmul, "w4_matmul"), "K6": (dtw, "dtw_trace"),
+                      "K7": (encoder, "enc_flash"), "K8": (decoder, "fused_mlp"),
+                      "K10": (decoder, "cross_attention_stream"),
+                      "K10-int4": (decoder, "cross_attention_stream4")}
         self.seen = {name: {} for name in self.sites}
         self.originals = {}
 
@@ -527,7 +722,8 @@ class Recorder:
 
         def recording(*args, **kwargs):
             key = len(seen) if name == "K6" else tuple(
-                tuple(a.shape) if torch.is_tensor(a) else a for a in args)
+                tuple(a.shape) if torch.is_tensor(a) else
+                type(a).__name__ if isinstance(a, torch.nn.Module) else a for a in args)
             if key not in seen:
                 seen[key] = tuple(a.detach().clone() if torch.is_tensor(a) else a
                                   for a in args)
@@ -547,15 +743,17 @@ class Recorder:
 
 def hold_path_inputs(card: str, label: str, inputs: dict):
     """Every kernel against its plain version on the inputs a path gave it
-    (K1-K5 and the int4 entries at each shape, K6 on every call). Returns
-    K6's `dtw_check` dict, or None when the path did not run K6."""
+    (K1-K5, K7, K8, K10 and the int4 entries at each shape, K6 on every
+    call). Returns K6's `dtw_check` dict, or None when the path did not run
+    K6."""
     for name, calls in inputs.items():
         if name == "K6" or not calls:
             continue
         for args in calls:
             err, tol = COMPARE[name](*args)
             shapes = [list(a.shape) for a in args if torch.is_tensor(a)][:2]
-            print(f"{label}: {name} on its input {shapes}: max_abs_err={err:.3e} "
+            entry = "K8-int8" if name == "K8" and hasattr(args[1], "w_q") else name
+            print(f"{label}: {entry} on its input {shapes}: max_abs_err={err:.3e} "
                   f"(tol {tol}) [{card}]", flush=True)
     if not inputs["K6"]:
         return None
@@ -804,6 +1002,59 @@ def sequential_check(card: str, model) -> dict:
     return counts
 
 
+@contextlib.contextmanager
+def switches_on():
+    """The JAX package's three switches on (`SWITCH_ENV` and
+    `models.decoder.FUSED_MLP`), restored on the way out, whatever happens."""
+    from whisper_at_tpu_torch.models import decoder
+
+    saved = {k: os.environ.get(k) for k in SWITCH_ENV}
+    os.environ.update(SWITCH_ENV)
+    decoder.FUSED_MLP = True
+    try:
+        yield
+    finally:
+        decoder.FUSED_MLP = False
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def switches_check(card: str, model, label: str, opts: dict, kernel_ids, unused_ids):
+    """`transcribe_batched` over the headline's audio with the JAX
+    package's three switches on (WHISPER_AT_TPU_ENC_ATTN=flash,
+    WHISPER_AT_TPU_CROSS_DECODE=stream, `models.decoder.FUSED_MLP`): a
+    warm-up call whose kernel inputs are recorded and held against the
+    plain versions, then the counted call, which must launch `kernel_ids`
+    and none of `unused_ids`. Returns the launch counts and the
+    throughput."""
+    import whisper_at_tpu_torch as wat
+
+    audio = synth_audio(BATCH * 30, SEED)
+    with switches_on():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with Recorder() as rec:
+            wat.transcribe_batched(model, audio, **opts)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        hold_path_inputs(card, label, rec.inputs)
+        del rec
+        torch.cuda.reset_peak_memory_stats()
+        result, seconds, counts = run_counted(
+            lambda: wat.transcribe_batched(model, audio, **opts), kernel_ids, unused_ids)
+        peak = torch.cuda.max_memory_allocated()
+    check_segments(result, len(audio), words=False)
+    rate = len(audio) / 16000 / seconds
+    print(f"transcribe_batched {label} {SIZE} batch {BATCH}: {len(audio) / 16000:.0f} s audio "
+          f"in {seconds:.3f} s = {rate:.2f} audio-s/s (second call; the first took "
+          f"{warm_s:.3f} s), {len(result['segments'])} segments, peak memory "
+          f"{peak / 2**30:.2f} GiB, launches {counts} [{card}]", flush=True)
+    return counts, rate
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card",
@@ -826,15 +1077,20 @@ def main() -> int:
                 if "registers" in ln or "spill" in ln]
         print(f"ptxas {kernel.name}: {' | '.join(regs)}", flush=True)
 
-    rows = kernel_checks(card)
+    rows, k9_launches = kernel_checks(card)
     import whisper_at_tpu_torch as wat
 
     model = wat.build_model(SIZE, device="cuda", dtype=torch.bfloat16, seed=SEED)
     counts, rate = transcribe_check(card, model)
     int4_counts, int4_rate = int4_check(card, model)
     _, beam_rate = beam_check(card, model)
+    a_counts, a_rate = switches_check(card, model, "switches (a)", HEADLINE_OPTS,
+                                      SWITCHES_A_KERNELS, ("K1", "K4"))
+    b_counts, b_rate = switches_check(card, model, "switches (b)", SWITCHES_B_OPTS,
+                                      SWITCHES_B_KERNELS, ("K1", "K4-int4"))
     print(f"throughput in this process: headline {rate:.2f}, int4 {int4_rate:.2f}, "
-          f"beam {BEAM} {beam_rate:.2f} audio-s/s [{card}]", flush=True)
+          f"beam {BEAM} {beam_rate:.2f}, switches (a) {a_rate:.2f}, switches (b) "
+          f"{b_rate:.2f} audio-s/s [{card}]", flush=True)
     words_counts, words_k6 = words_check(card, model)
     # K6's numbers in the kernels line come from the words call's own inputs
     words_k6["err"] = max(words_k6["err"], rows["K6"]["err"])
@@ -844,8 +1100,11 @@ def main() -> int:
           flush=True)
 
     # launches from the counted call of the path that runs each kernel
+    # (K9 has no path: its launches are those of its kernel phase)
     path_counts = {"K6": words_counts, "K3-int4": int4_counts, "K4-int4": int4_counts,
-                   "K5": int4_counts}
+                   "K5": int4_counts, "K7": a_counts, "K8-int8": a_counts, "K10": a_counts,
+                   "K8": b_counts, "K10-int4": b_counts,
+                   "K9": {rows["K9"]["kernel"].name: k9_launches}}
     line = {"kernels": [
         {"name": name,
          "route": "cuda",

@@ -1,5 +1,5 @@
 """The port's CUDA kernels against their plain versions, on the card
-(K1-K6 and the int4 entries of K3 and K4).
+(K1-K10, the int4 entries of K3, K4 and K10, the int8 entry of K8).
 
 Every test here needs an NVIDIA GPU and the CUDA toolkit (nvcc); without a
 card they skip. Run them on the card with `pytest -m cuda
@@ -205,3 +205,107 @@ def test_transcribe_batched_beam_runs_through_its_kernels(dev):
     counts = cuda.launch_counts()
     assert counts["kv_quant"] > 0 and counts["cross_decode"] > 0, counts
     assert all(np.isfinite(seg["avg_logprob"]) for seg in result["segments"])
+
+
+def test_enc_flash_kernel(dev):
+    """K7 at T = 300 (a ragged last tile, padded query rows) and T = 1500."""
+    from whisper_at_tpu_torch.ops.enc_flash import enc_flash, enc_flash_plain
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for t in (300, 1500):
+        q, k, v = (_randn(gen, 2, t, 256) for _ in range(3))
+        _close(enc_flash(q, k, v, 4), enc_flash_plain(q, k, v, 4))
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("m", [1, 24, 120])
+def test_fused_mlp_kernel(dev, quantized, m):
+    """K8, bf16 and int8 entries, at a greedy step, a beam-5 step and one row."""
+    from whisper_at_tpu_torch.models.layers import Linear, quantize_linear
+    from whisper_at_tpu_torch.ops import fused_mlp
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    d, f = 384, 1536
+    fc1 = Linear(d, f, device=dev, dtype=torch.bfloat16)
+    fc2 = Linear(f, d, device=dev, dtype=torch.bfloat16)
+    fc1.reset_random(gen)
+    fc2.reset_random(gen)
+    fc1.requires_grad_(False)
+    fc2.requires_grad_(False)
+    if quantized:
+        fc1, fc2 = quantize_linear(fc1), quantize_linear(fc2)
+    x = _randn(gen, m, d)
+    out = fused_mlp.fused_mlp(x, fc1, fc2)
+    ref = fused_mlp.fused_mlp_plain(x, *fused_mlp.linear_weights(fc1),
+                                    *fused_mlp.linear_weights(fc2))
+    _close(out, ref, rel=2 ** -7)
+    torch.testing.assert_close(fused_mlp.fused_mlp(x, fc1, fc2), out, rtol=0, atol=0)
+
+
+def test_flash_decode_kernel(dev):
+    """K9 on K3's output (S = 300 of 384 valid) at one query row per head."""
+    from whisper_at_tpu_torch.ops.flash_decode import flash_decode_cross, flash_decode_cross_plain
+    from whisper_at_tpu_torch.ops.kv_quant import project_quantize_kv
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    b, ta, d, h = 3, 300, 256, 4
+    xa = _randn(gen, b, ta, d)
+    kq, ks, vq, vs = project_quantize_kv(xa, _randn(gen, d, d, scale=d ** -0.5),
+                                         _randn(gen, d, d, scale=d ** -0.5),
+                                         _randn(gen, d, scale=0.02))
+    q = _randn(gen, b * h, 64)
+    out = flash_decode_cross(q, kq, ks, vq, vs, h, ta)
+    ref = flash_decode_cross_plain(q, kq, ks, vq, vs, h, ta)
+    _close(out, ref, rel=2 ** -7)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("groups", [1, 3, 12])
+def test_cross_decode_stream_kernels(dev, bits, groups):
+    """K10 and K10-int4 on K3's output; G = 12 takes two row slices."""
+    from whisper_at_tpu_torch.ops import cross_decode_stream as cs
+    from whisper_at_tpu_torch.ops.cross_decode import pad_bias
+    from whisper_at_tpu_torch.ops.kv_quant import (
+        pad_ta, project_quantize_kv, project_quantize_kv4)
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    b, ta, d, h = 2, 300, 256, 4
+    xa = _randn(gen, b, ta, d)
+    project = project_quantize_kv4 if bits == 4 else project_quantize_kv
+    kern = project(xa, _randn(gen, d, d, scale=d ** -0.5), _randn(gen, d, d, scale=d ** -0.5),
+                   _randn(gen, d, scale=0.02))
+    q = _randn(gen, b, h * groups, 64, scale=0.125)
+    bias = pad_bias(ta, pad_ta(ta), dev)
+    kernel, plain = ((cs.cross_attention_stream4, cs.cross_attention_stream4_plain) if bits == 4
+                     else (cs.cross_attention_stream, cs.cross_attention_stream_plain))
+    _close(kernel(q, *kern, bias, h), plain(q, *kern, bias, h), rel=1e-3)
+
+
+@pytest.mark.parametrize("variant", ["a", "b"])
+def test_transcribe_batched_switches_run_through_their_kernels(dev, monkeypatch, variant):
+    """With ENC_ATTN=flash, CROSS_DECODE=stream and FUSED_MLP the call
+    reaches K7, K8 and K10 in place of K1, the unfused MLP and K4: (a) with
+    int8 weights and cross K/V, (b) with bf16 weights and int4 cross K/V."""
+    import whisper_at_tpu_torch as wat
+    from whisper_at_tpu_torch.models import decoder
+    from whisper_at_tpu_torch.ops import cuda
+
+    monkeypatch.setenv("WHISPER_AT_TPU_ENC_ATTN", "flash")
+    monkeypatch.setenv("WHISPER_AT_TPU_CROSS_DECODE", "stream")
+    monkeypatch.setattr(decoder, "FUSED_MLP", True)
+    model = wat.build_model("tiny", device=dev, dtype=torch.bfloat16, seed=0)
+    audio = (np.random.default_rng(0).standard_normal(16000 * 40) * 3000).astype(np.int16)
+    opts = (dict(kv_quant=True, weight_quant=True) if variant == "a"
+            else dict(kv_quant=True, kv_bits=4))
+    cuda.reset_launch_counts()
+    result = wat.transcribe_batched(model, audio, language="en", temperature=0.0,
+                                    sample_len=8, self_kv_quant=True, logprob_threshold=None,
+                                    compression_ratio_threshold=None, no_speech_threshold=None,
+                                    **opts)
+    counts = cuda.launch_counts()
+    used = (("enc_flash", "fused_mlp_int8", "cross_decode_stream") if variant == "a"
+            else ("enc_flash", "fused_mlp", "cross_decode_stream4"))
+    for name in used:
+        assert counts[name] > 0, counts
+    assert counts["enc_attention"] == counts["cross_decode"] == counts["cross_decode4"] == 0, counts
+    assert result["audio_tag"].shape == (4, 527) and np.isfinite(result["audio_tag"]).all()

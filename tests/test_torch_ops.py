@@ -160,9 +160,17 @@ def test_kernels_registered_with_sources():
     """Every kernel names an existing CUDA source and the TPU kernel it
     replaces; nothing was built or launched by the CPU tests."""
     assert set(cuda.KERNELS) == {"enc_attention", "enc_mlp", "kv_quant", "kv_quant4",
-                                 "cross_decode", "cross_decode4", "w4_matmul", "dtw"}
+                                 "cross_decode", "cross_decode4", "w4_matmul", "dtw",
+                                 "enc_flash", "fused_mlp", "fused_mlp_int8", "flash_decode",
+                                 "cross_decode_stream", "cross_decode_stream4"}
     for kernel in cuda.KERNELS.values():
         assert kernel.library_path().endswith(".so")
         assert kernel.replaces.startswith("whisper_at_tpu/ops/")
         assert kernel._lib is None
+    for name, replaces in (("enc_flash", "flash.py:63"), ("fused_mlp", "fused_mlp.py:101"),
+                           ("fused_mlp_int8", "fused_mlp.py:101"),
+                           ("flash_decode", "flash_decode.py:89"),
+                           ("cross_decode_stream", "cross_decode_stream.py:218"),
+                           ("cross_decode_stream4", "cross_decode_stream.py:218")):
+        assert cuda.KERNELS[name].replaces == "whisper_at_tpu/ops/" + replaces
 

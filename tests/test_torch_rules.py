@@ -41,12 +41,96 @@ def test_import_loads_no_jax():
             "whisper_at_tpu_torch.convert, whisper_at_tpu_torch.ops, "
             "whisper_at_tpu_torch.timing, whisper_at_tpu_torch.registry, "
             "whisper_at_tpu_torch.ops.dtw, whisper_at_tpu_torch.ops.median, "
-            "whisper_at_tpu_torch.ops.w4_matmul; "
+            "whisper_at_tpu_torch.ops.w4_matmul, whisper_at_tpu_torch.ops.enc_flash, "
+            "whisper_at_tpu_torch.ops.fused_mlp, whisper_at_tpu_torch.ops.flash_decode, "
+            "whisper_at_tpu_torch.ops.cross_decode_stream; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
             "'whisper_at_tpu')]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports itself on the card: it shows what a kernel
+    wrapper does with a CUDA tensor on a machine without one."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def _wrapper_cases():
+    """(ops module, kernel, plain function name, wrapper, argument maker) of
+    each entry of K7-K10; the arguments are small and well formed."""
+    from whisper_at_tpu_torch.models.layers import QuantLinear
+    from whisper_at_tpu_torch.ops import cross_decode_stream, enc_flash, flash_decode, fused_mlp
+
+    bf, i8, f32 = torch.bfloat16, torch.int8, torch.float32
+    gen = torch.Generator().manual_seed(0)
+
+    def rand(shape, dtype):
+        if dtype == i8:
+            return torch.randint(-7, 8, shape, generator=gen, dtype=i8)
+        return torch.randn(shape, generator=gen).to(dtype)
+
+    def linear(n_out, n_in, quantized):
+        if quantized:
+            return lambda on: QuantLinear(on(rand((n_out, n_in), i8)),
+                                          on(rand((n_out,), f32).abs()),
+                                          on(rand((n_out,), bf)))
+        return lambda on: type("Lin", (), dict(weight=on(rand((n_out, n_in), bf)),
+                                                bias=on(rand((n_out,), bf))))()
+
+    def cross(width):
+        return lambda on: (on(rand((1, 2, 64), bf)), on(rand((1, 128, width), i8)),
+                           on(rand((1, 2, 128), f32)), on(rand((1, 128, width), i8)),
+                           on(rand((1, 2, 128), f32)), on(torch.zeros(128)), 2)
+
+    return {
+        "enc_flash": (enc_flash, enc_flash.KERNEL, "enc_flash_plain", enc_flash.enc_flash,
+                      lambda on: (*(on(rand((1, 64, 128), bf)) for _ in range(3)), 2)),
+        "fused_mlp": (fused_mlp, fused_mlp.KERNEL, "fused_mlp_plain", fused_mlp.fused_mlp,
+                      lambda on: (on(rand((3, 64), bf)), linear(256, 64, False)(on),
+                                  linear(64, 256, False)(on))),
+        "fused_mlp_int8": (fused_mlp, fused_mlp.KERNEL_INT8, "fused_mlp_plain",
+                           fused_mlp.fused_mlp,
+                           lambda on: (on(rand((3, 64), bf)), linear(256, 64, True)(on),
+                                       linear(64, 256, True)(on))),
+        "flash_decode": (flash_decode, flash_decode.KERNEL, "flash_decode_cross_plain",
+                         flash_decode.flash_decode_cross,
+                         lambda on: (on(rand((2, 64), bf)), on(rand((1, 128, 128), i8)),
+                                     on(rand((1, 2, 128), f32)), on(rand((1, 128, 128), i8)),
+                                     on(rand((1, 2, 128), f32)), 2)),
+        "cross_decode_stream": (cross_decode_stream, cross_decode_stream.KERNEL,
+                                "cross_attention_stream_plain",
+                                cross_decode_stream.cross_attention_stream, cross(128)),
+        "cross_decode_stream4": (cross_decode_stream, cross_decode_stream.KERNEL4,
+                                 "cross_attention_stream4_plain",
+                                 cross_decode_stream.cross_attention_stream4, cross(64)),
+    }
+
+
+@pytest.mark.parametrize("name", ["enc_flash", "fused_mlp", "fused_mlp_int8", "flash_decode",
+                                  "cross_decode_stream", "cross_decode_stream4"])
+def test_wrappers_take_the_plain_version_only_on_cpu_tensors(monkeypatch, name):
+    """Each new wrapper runs its plain version for CPU tensors and never
+    launches; for tensors on the card it launches its kernel once and never
+    runs the plain version (no fallback)."""
+    module, kernel, plain_name, wrapper, make_args = _wrapper_cases()[name]
+    launched = []
+    monkeypatch.setattr(kernel, "launch", lambda *a: launched.append(a))
+    monkeypatch.setattr(kernel, "c_function", lambda *a: lambda *b: 1)
+    monkeypatch.setattr(module, "stream_handle", lambda device: None)
+    wrapper(*make_args(lambda t: t))
+    assert not launched
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain version ran on a card tensor")
+
+    monkeypatch.setattr(module, plain_name, refuse)
+    wrapper(*make_args(lambda t: torch.Tensor._make_subclass(_OnCard, t)))
+    assert len(launched) == 1
 
 
 def test_entry_points_default_to_the_card(monkeypatch, tmp_path):

@@ -1,6 +1,6 @@
 """Where the time goes in the port's headline workload, on the card.
 
-    python3 tools/profile_torch_headline.py [--words | --int4 | --beam]
+    python3 tools/profile_torch_headline.py [--words | --int4 | --beam | --switches]
         [--out build/profile_torch_headline.json]
 
 Builds large-v1 (bf16, random weights from a seeded generator) and runs
@@ -25,15 +25,20 @@ chip_smoke.py's headline options (`HEADLINE_OPTS`, `synth_audio`):
    With `--int4` the call takes chip_smoke.py's `INT4_OPTS` (int4 cross
    K/V, weights through K5, self cache); with `--beam` its beam call's
    options (beam_size=5, full-length text), the decode stage being
-   `beam_sample_loop`;
+   `beam_sample_loop`. With `--switches` the whole profile runs three
+   times in one process: the headline, then chip_smoke.py's switches calls
+   (a) and (b) (WHISPER_AT_TPU_ENC_ATTN=flash, WHISPER_AT_TPU_CROSS_DECODE=
+   stream and `models.decoder.FUSED_MLP`: K7, K8, K10; (b) with int4 cross
+   K/V and bf16 weights), so each alternative's stages stand beside the
+   headline's;
 3. one call under `torch.profiler`: the device's busy time (the union of
    kernel intervals) and its idle share of that same profiled call, the
-   kernels that take the most device time, and the device time of K5 and
-   of the widening copies (`direct_copy` kernels) with their shares of the
-   busy time.
+   kernels that take the most device time, the device time of each of the
+   port's kernels, and that of the widening copies (`direct_copy` kernels),
+   each with its share of the busy time.
 
-Prints the card's name and power limit, then one JSON object (also
-written to --out). Needs one NVIDIA GPU.
+Prints the card's name and power limit, then one JSON object per profiled
+configuration (all of them also written to --out). Needs one NVIDIA GPU.
 """
 
 import argparse
@@ -49,8 +54,13 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from chip_smoke import (  # noqa: E402
-    BATCH, BEAM, HEADLINE_OPTS, INT4_OPTS, SEED, SIZE, card_line, full_text_opts, synth_audio,
-    words_opts)
+    BATCH, BEAM, HEADLINE_OPTS, INT4_OPTS, SEED, SIZE, SWITCHES_B_OPTS, card_line,
+    full_text_opts, switches_on, synth_audio, words_opts)
+
+# device kernels of the port, by the name of their __global__ function
+PORT_KERNELS = ("enc_attention_kernel", "enc_flash_kernel", "enc_mlp", "kv_quant",
+                "cross_decode_kernel", "cross_decode_stream_kernel", "w4_matmul_kernel",
+                "fused_mlp_kernel", "fused_mlp_combine", "flash_decode", "dtw")
 
 
 def timed(fn):
@@ -132,6 +142,61 @@ def stage_times(call, hooks) -> dict:
     return stages
 
 
+def time_stages(call, words: bool, label: str) -> dict:
+    """A warm-up call, two timed calls and the stage split of call()."""
+    _, warm_s = timed(call)
+    call_s = [timed(call)[1] for _ in range(2)]
+    torch.cuda.reset_peak_memory_stats()
+    stages = stage_times(call, stage_hooks(words))
+    peak = torch.cuda.max_memory_allocated()
+    print(json.dumps({"options": label, "call_s": call_s, "stages": stages}), flush=True)
+    return {"options": label, "peak_memory_bytes_stage_call": peak, "first_call_s": warm_s,
+            "call_s": call_s, "stages": stages}
+
+
+def profile_call(call, audio_s: float, card: str, timing: dict) -> dict:
+    """One call of call() under torch.profiler, reported beside `timing`.
+    Every timed call of a run comes before its first profiled call: calls
+    timed after a profiled one ran up to 1.5x slower than the same calls in
+    a process that had not run the profiler (NVIDIA H100, switches calls)."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, prof_s = timed(call)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = busy_seconds([(e.time_range.start, e.time_range.end) for e in kernels])
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+
+    def device_s(pattern: str) -> float:
+        return sum(us for name, us in by_name.items() if pattern in name) * 1e-6
+
+    port = {name: device_s(name) for name in PORT_KERNELS if device_s(name) > 0}
+    copy_s = device_s("direct_copy")
+    return {
+        "card": card, "audio_s": audio_s, **timing,
+        "audio_s_per_s": [audio_s / s for s in timing["call_s"]],
+        "profiled_call_s": prof_s, "device_busy_s": busy,
+        "device_idle_share_of_profiled_call": 1 - busy / prof_s,
+        "n_kernel_launches": len(kernels),
+        "port_kernels_device_s": port,
+        "port_kernels_share_of_device_busy": {k: v / busy for k, v in port.items()},
+        "widening_copies_device_s": copy_s, "widening_copies_share_of_device_busy": copy_s / busy,
+        "top_kernels_ms": [[name[:90], us * 1e-3] for name, us in top],
+    }
+
+
+def with_switches(call):
+    """call() with the JAX package's three switches on (chip_smoke's
+    `switches_on`)."""
+    def switched():
+        with switches_on():
+            return call()
+    return switched
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", default="build/profile_torch_headline.json")
@@ -142,6 +207,8 @@ def main(argv=None) -> int:
                       help="profile the call with every int4 option")
     mode.add_argument("--beam", action="store_true",
                       help=f"profile the call with beam_size={BEAM}, full-length text")
+    mode.add_argument("--switches", action="store_true",
+                      help="profile the headline, then switches calls (a) and (b)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -155,59 +222,30 @@ def main(argv=None) -> int:
     model = wat.build_model(SIZE, device="cuda", dtype=torch.bfloat16, seed=SEED)
     audio = synth_audio(BATCH * 30, SEED)
 
-    if args.words:
-        opts = words_opts(model)
+    if args.switches:
+        runs = [("headline", HEADLINE_OPTS, False),
+                ("switches (a)", HEADLINE_OPTS, True),
+                ("switches (b)", SWITCHES_B_OPTS, True)]
+    elif args.words:
+        runs = [("words", words_opts(model), False)]
     elif args.int4:
-        opts = INT4_OPTS
+        runs = [("int4", INT4_OPTS, False)]
     elif args.beam:
-        opts = dict(full_text_opts(model), beam_size=BEAM)
+        runs = [(f"beam{BEAM}", dict(full_text_opts(model), beam_size=BEAM), False)]
     else:
-        opts = HEADLINE_OPTS
-
-    def call():
-        return wat.transcribe_batched(model, audio, **opts)
-
-    _, warm_s = timed(call)
-    call_s = [timed(call)[1] for _ in range(2)]
-    torch.cuda.reset_peak_memory_stats()
-    stages = stage_times(call, stage_hooks(args.words))
-    peak = torch.cuda.max_memory_allocated()
-    print(json.dumps({"call_s": call_s, "stages": stages}), flush=True)
-
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, prof_s = timed(call)
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = busy_seconds([(e.time_range.start, e.time_range.end) for e in kernels])
-    by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-
-    def device_s(pattern: str) -> float:
-        return sum(us for name, us in by_name.items() if pattern in name) * 1e-6
-
-    k5_s, copy_s = device_s("w4_matmul_kernel"), device_s("direct_copy")
-    audio_s = len(audio) / 16000
-    report = {
-        "card": card, "audio_s": audio_s,
-        "options": "words" if args.words else "int4" if args.int4 else
-                   f"beam{BEAM}" if args.beam else "headline",
-        "peak_memory_bytes_stage_call": peak,
-        "first_call_s": warm_s, "call_s": call_s,
-        "audio_s_per_s": [audio_s / s for s in call_s], "stages": stages,
-        "profiled_call_s": prof_s, "device_busy_s": busy,
-        "device_idle_share_of_profiled_call": 1 - busy / prof_s,
-        "n_kernel_launches": len(kernels),
-        "k5_device_s": k5_s, "k5_share_of_device_busy": k5_s / busy,
-        "widening_copies_device_s": copy_s, "widening_copies_share_of_device_busy": copy_s / busy,
-        "top_kernels_ms": [[name[:90], us * 1e-3] for name, us in top],
-    }
+        runs = [("headline", HEADLINE_OPTS, False)]
+    calls, timings = [], []
+    for label, opts, switches in runs:
+        call = functools.partial(wat.transcribe_batched, model, audio, **opts)
+        calls.append(with_switches(call) if switches else call)
+        timings.append(time_stages(calls[-1], args.words, label))
+    reports = []
+    for call, timing in zip(calls, timings):
+        reports.append(profile_call(call, len(audio) / 16000, card, timing))
+        print(json.dumps(reports[-1]), flush=True)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
-        json.dump(report, f, indent=1)
-    print(json.dumps(report))
+        json.dump(reports[0] if len(reports) == 1 else reports, f, indent=1)
     return 0
 
 

@@ -51,6 +51,17 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                : "memory");
 }
 
+// four 8x8 bf16 matrices from shared memory, transposed: lanes 8i .. 8i+7
+// give the 16-byte rows of matrix i, and r[i] receives, per lane, the
+// elements (rows 2t, 2t+1; column g) of matrix i, i.e. a k-major B fragment
+// register of mma m16n8k16 when the matrix is stored [k][n]
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* smem) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

@@ -12,12 +12,25 @@ by an einsum over the same layout. The self cache can hold int8 or int4
 codes (plain PyTorch: the JAX package has no kernel for it). int4 codes are
 packed by `layers.pack4` everywhere.
 
+Two switches of the JAX package choose its alternative kernels here:
+WHISPER_AT_TPU_CROSS_DECODE=stream serves K4's calls with K10
+(`ops/cross_decode_stream.py`), at both widths; `FUSED_MLP = True` runs the
+decode MLP through K8 (`ops/fused_mlp.py`) over all B*S rows (the JAX code
+feeds its kernel the first position only, which would drop every other
+prefill position; that is not carried over). The JAX package reads the
+variable once, at import, because its decode traces are cached; eager
+PyTorch caches nothing, so the port reads it once per `decoder_forward`
+call. That is the one difference in when it is read; the port also
+refuses a value other than `stream` or nothing, which the JAX package
+treats as unset.
+
 The full (non-incremental) forward, `decoder_forward_with_qk`, runs over
 whole token rows on the plain decoder weights: word timing reads the
 cross-attention logits of the alignment heads it keeps, `Whisper.logits`
 (language detection) reads its logits alone.
 """
 
+import os
 from dataclasses import dataclass
 from typing import Optional
 
@@ -25,6 +38,8 @@ import torch
 from torch import nn
 
 from ..ops.cross_decode import cross_attention_int4, cross_attention_int8, pad_bias
+from ..ops.cross_decode_stream import cross_attention_stream, cross_attention_stream4
+from ..ops.fused_mlp import fused_mlp
 from ..ops.kv_quant import pad_ta, project_quantize_kv, project_quantize_kv4, quantize_sym
 from .layers import (
     LayerNorm,
@@ -40,7 +55,20 @@ from .layers import (
 )
 
 NEG_INF = float("-inf")
-KERNEL_MAX_ROWS = 256  # heads x query rows up to which K4 serves a call
+KERNEL_MAX_ROWS = 256  # heads x query rows up to which K4 (or K10) serves a call
+# the decode MLP through K8, the counterpart of `use_fused_mlp` in the JAX
+# package's decoder_forward (False there too)
+FUSED_MLP = False
+CROSS_DECODE_ENV = "WHISPER_AT_TPU_CROSS_DECODE"
+
+
+def cross_decode_streamed() -> bool:
+    """WHISPER_AT_TPU_CROSS_DECODE: "stream" selects K10 in place of K4;
+    unset or empty keeps K4; anything else raises."""
+    impl = os.environ.get(CROSS_DECODE_ENV, "")
+    if impl not in ("", "stream"):
+        raise ValueError(f"{CROSS_DECODE_ENV}={impl!r}: expected 'stream' or nothing")
+    return impl == "stream"
 
 
 class Embedding(nn.Module):
@@ -209,10 +237,10 @@ def precompute_cross_kv(params: Parts, xa: torch.Tensor, n_head: int,
 
 
 def _cross_attn_apply(blk, h: torch.Tensor, cross: CrossKV, layer: int, n_head: int,
-                      compute_dtype, group: int = 1) -> torch.Tensor:
+                      compute_dtype, group: int = 1, stream: bool = False) -> torch.Tensor:
     """One layer's cross-attention with the residual added. `group` query
     rows share one audio row; they fold into the query axis so each audio
-    row's K/V is read once."""
+    row's K/V is read once. `stream` serves K4's calls with K10."""
     q = blk.cross_attn.query(blk.cross_attn_ln(h))
     qh = _split_heads(q, n_head)                         # [B, H, S, Dh]
     b, _, s, dh = qh.shape
@@ -228,7 +256,10 @@ def _cross_attn_apply(blk, h: torch.Tensor, cross: CrossKV, layer: int, n_head: 
         ta_pad = ck.shape[1]
         if n_head * rows <= KERNEL_MAX_ROWS:
             q_rows = (qh * scale).reshape(a, n_head * rows, dh).to(compute_dtype)
-            kernel = cross_attention_int4 if cross.bits == 4 else cross_attention_int8
+            if stream:
+                kernel = cross_attention_stream4 if cross.bits == 4 else cross_attention_stream
+            else:
+                kernel = cross_attention_int4 if cross.bits == 4 else cross_attention_int8
             out = kernel(q_rows.contiguous(), ck, ks, cv, vs, cross.bias, n_head)
             attn = out.reshape(a, n_head, rows, dh).to(compute_dtype)
         else:
@@ -257,6 +288,7 @@ def decoder_forward(params: Parts, tokens: torch.Tensor, cross: CrossKV,
     """One pass over tokens [B, S] written at cache slots write_pos..+S
     (prefill: S = bucket; step: S = 1). Updates `cache` in place and returns
     the hidden states [B, S, D] after the final LN."""
+    stream = cross_decode_streamed()
     dev = tokens.device
     s = tokens.shape[1]
     end = write_pos + s  # slots past `end` are masked, so they are not read
@@ -303,8 +335,13 @@ def decoder_forward(params: Parts, tokens: torch.Tensor, cross: CrossKV,
             attn = torch.matmul(torch.softmax(qk, dim=-1).to(compute_dtype),
                                 cache.v[i, :, :, :end].to(compute_dtype))
         x = x + blk.attn.out(_merge_heads(attn))
-        x = _cross_attn_apply(blk, x, cross, i, n_head, compute_dtype, group)
-        x = x + blk.mlp[2](gelu(blk.mlp[0](blk.mlp_ln(x))))
+        x = _cross_attn_apply(blk, x, cross, i, n_head, compute_dtype, group, stream)
+        h = blk.mlp_ln(x)
+        if FUSED_MLP:
+            b, s_, d = h.shape
+            x = x + fused_mlp(h.reshape(b * s_, d), blk.mlp[0], blk.mlp[2]).reshape(b, s_, d)
+        else:
+            x = x + blk.mlp[2](gelu(blk.mlp[0](h)))
     return params.ln(x)
 
 

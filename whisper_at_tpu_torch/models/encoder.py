@@ -4,6 +4,12 @@ Counterpart of `whisper_at_tpu/models/encoder.py::encoder_apply`. The
 Whisper-AT addition: after every block the hidden states are averaged 20x
 along time, and the per-layer stack [B, L, 75, D] (taken before ln_post)
 feeds the TL-TR head.
+
+The attention and MLP implementations are chosen as in the JAX package
+(`whisper_at_tpu/ops/flash.py:37-59`): attn_impl "single" (K1, the
+default), "flash" (K7) or "xla" (the plain attention); mlp_impl "fused"
+(K2, the default) or "xla" (the plain MLP). `Whisper.embed_audio` reads
+them from WHISPER_AT_TPU_ENC_ATTN and WHISPER_AT_TPU_ENC_MLP per call.
 """
 
 from typing import Tuple
@@ -13,10 +19,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.enc_attention import enc_attention
+from ..ops.enc_flash import enc_flash
 from ..ops.enc_mlp import enc_mlp
 from .layers import (
     LayerNorm,
     ResidualAttentionBlock,
+    attention,
     gelu,
     reset_random_,
     sinusoids,
@@ -24,6 +32,8 @@ from .layers import (
 )
 
 POOL = 20  # time pooling of the taps
+ATTN_IMPLS = ("single", "flash", "xla")
+MLP_IMPLS = ("fused", "xla")
 
 
 class Conv1d(nn.Module):
@@ -64,9 +74,15 @@ class AudioEncoder(nn.Module):
 
 
 def encoder_apply(encoder: AudioEncoder, mel: torch.Tensor, n_head: int,
-                  compute_dtype=torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
+                  compute_dtype=torch.float32, attn_impl: str = "single",
+                  mlp_impl: str = "fused") -> Tuple[torch.Tensor, torch.Tensor]:
     """mel [B, 80, 3000] -> (features [B, 1500, D] after ln_post,
     taps [B, L, 75, D]: each block's output pooled 20x, before ln_post)."""
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl {attn_impl!r} is not one of {ATTN_IMPLS}")
+    if mlp_impl not in MLP_IMPLS:
+        raise ValueError(f"mlp_impl {mlp_impl!r} is not one of {MLP_IMPLS}")
+    attend = {"single": enc_attention, "flash": enc_flash, "xla": attention}[attn_impl]
     x = mel.to(compute_dtype)
     x = gelu(encoder.conv1(x, stride=1))
     x = gelu(encoder.conv2(x, stride=2))                    # [B, D, T]
@@ -76,9 +92,12 @@ def encoder_apply(encoder: AudioEncoder, mel: torch.Tensor, n_head: int,
     for block in encoder.blocks:
         h = block.attn_ln(x)
         q, k, v = block.attn.query(h), block.attn.key(h), block.attn.value(h)
-        x = x + block.attn.out(enc_attention(q, k, v, n_head))
+        x = x + block.attn.out(attend(q, k, v, n_head))
         fc1, fc2 = block.mlp[0], block.mlp[2]
-        x = enc_mlp(x, block.mlp_ln.weight, block.mlp_ln.bias,
-                    fc1.weight, fc1.bias, fc2.weight, fc2.bias)
+        if mlp_impl == "fused":
+            x = enc_mlp(x, block.mlp_ln.weight, block.mlp_ln.bias,
+                        fc1.weight, fc1.bias, fc2.weight, fc2.bias)
+        else:
+            x = x + fc2(gelu(fc1(block.mlp_ln(x))))
         taps.append(x.reshape(b, t // POOL, POOL, d).mean(dim=2))
     return encoder.ln_post(x), torch.stack(taps, dim=1)

@@ -8,6 +8,7 @@ package's parameter tree into the same state dict.
 
 import base64
 import gzip
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -98,11 +99,16 @@ class Whisper(nn.Module):
 
     def embed_audio(self, mel: torch.Tensor, fp16: bool = True
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """mel [B, 80, 3000] -> (features [B, 1500, D], taps [B, L, 75, D])."""
+        """mel [B, 80, 3000] -> (features [B, 1500, D], taps [B, L, 75, D]).
+        WHISPER_AT_TPU_ENC_ATTN ("single", "flash" or "xla") and
+        WHISPER_AT_TPU_ENC_MLP ("fused" or "xla") choose the encoder's
+        kernels, read on every call as the JAX package reads them."""
         if mel.dim() == 2:
             mel = mel[None]
         return encoder_apply(self.encoder, mel, self.dims.n_audio_head,
-                             self.compute_dtype(fp16))
+                             self.compute_dtype(fp16),
+                             attn_impl=os.environ.get("WHISPER_AT_TPU_ENC_ATTN", "single"),
+                             mlp_impl=os.environ.get("WHISPER_AT_TPU_ENC_MLP", "fused"))
 
     def at_forward(self, audio_rep: torch.Tensor, time_resolution: float = 10) -> torch.Tensor:
         """Tag logits [B, n_seg, 527] (or [n_seg, 527]) from taps [B, L, T, D]."""

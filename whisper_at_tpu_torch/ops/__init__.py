@@ -1,5 +1,17 @@
 """Device ops of the port. Importing this package registers every
-hand-written CUDA kernel (K1-K6, with the int4 entries of K3 and K4) in
-`ops.cuda.KERNELS`; nothing is built or launched at import time."""
+hand-written CUDA kernel (K1-K10, with the int4 entries of K3, K4 and K10
+and the int8 entry of K8) in `ops.cuda.KERNELS`; nothing is built or
+launched at import time."""
 
-from . import cross_decode, dtw, enc_attention, enc_mlp, kv_quant, w4_matmul  # noqa: F401
+from . import (  # noqa: F401
+    cross_decode,
+    cross_decode_stream,
+    dtw,
+    enc_attention,
+    enc_flash,
+    enc_mlp,
+    flash_decode,
+    fused_mlp,
+    kv_quant,
+    w4_matmul,
+)
