@@ -25,7 +25,11 @@ before and read just after, and checks its output:
     headline with WHISPER_AT_TPU_ENC_ATTN=flash, WHISPER_AT_TPU_CROSS_DECODE
     =stream and `models.decoder.FUSED_MLP` (K7, K2, K3, K8-int8, K10; not
     K1 or K4), (b) the same switches with int4 cross K/V, bf16 weights and
-    the int8 self cache (K7, K2, K3-int4, K8, K10-int4; not K4-int4).
+    the int8 self cache (K7, K2, K3-int4, K8, K10-int4; not K4-int4);
+(9) the streaming probe: `tools/probe_dma_torch.py`'s `probe` at the JAX
+    probe's defaults (512 MiB int8 in 1 MiB chunks, the same numpy draw):
+    P1 and P2 (cp.async and TMA rings at depths 2, 4, 8), each bitwise
+    equal to the plain version in its sums and XOR word, beside torch.sum.
 Each path's kernel inputs are also recorded (`Recorder`) and every kernel
 is held against its plain version on them: K1-K5, K7, K8, K10 and the int4
 entries at each shape the path gave them, K6 on every call. K9 has no path
@@ -37,7 +41,7 @@ time, one line per kernel check (K5 one per weight shape and row count),
 one line per path (throughput, launch counts, peak memory, the seek loop's
 window count) with its held kernel inputs, the headline's, the int4
 call's, the beam call's and the two switches calls' throughput side by
-side, then a
+side, the probe's rows (GB/s and share of 3.35 TB/s), then a
 JSON line with every kernel's numbers and, last, the `{"ok": true,
 "device": ...}` line. Any failed phase raises and exits non-zero before the
 result lines. Without a CUDA card it exits non-zero at once.
@@ -95,6 +99,12 @@ DTW_WORST = 448
 SWITCH_ENV = {"WHISPER_AT_TPU_ENC_ATTN": "flash", "WHISPER_AT_TPU_CROSS_DECODE": "stream"}
 SWITCHES_B_OPTS = dict(HEADLINE_OPTS, kv_bits=4, weight_quant=False)
 K8_ROWS = (BATCH, BATCH * BEAM)  # a greedy step, a beam-5 step
+# the streaming probe (P1, P2): the JAX probe's defaults; P2's rows in the
+# kernels line are its depth-4 rings (every depth is printed)
+PROBE_MB = 512
+PROBE_CHUNK_KB = 1024
+PROBE_ITERS = 5
+PROBE_ROWS = {"P1": "auto", "P2-cp": "cp-4", "P2-tma": "tma-4"}
 
 
 def card_line() -> str:
@@ -670,6 +680,7 @@ def kernels_of(names) -> list:
         flash_decode,
         fused_mlp,
         kv_quant,
+        probe_dma,
         w4_matmul,
     )
 
@@ -678,7 +689,8 @@ def kernels_of(names) -> list:
                "K4-int4": cross_decode.KERNEL4, "K5": w4_matmul.KERNEL, "K6": dtw.KERNEL,
                "K7": enc_flash.KERNEL, "K8": fused_mlp.KERNEL, "K8-int8": fused_mlp.KERNEL_INT8,
                "K9": flash_decode.KERNEL, "K10": cross_decode_stream.KERNEL,
-               "K10-int4": cross_decode_stream.KERNEL4}
+               "K10-int4": cross_decode_stream.KERNEL4, "P1": probe_dma.KERNEL_AUTO,
+               "P2-cp": probe_dma.KERNEL_CP, "P2-tma": probe_dma.KERNEL_TMA}
     return [kernels[n].name for n in names]
 
 
@@ -1055,6 +1067,43 @@ def switches_check(card: str, model, label: str, opts: dict, kernel_ids, unused_
     return counts, rate
 
 
+def probe_check(card: str):
+    """(9) The streaming probe, `tools/probe_dma_torch.probe`, on the JAX
+    probe's buffer (PROBE_MB MiB, PROBE_CHUNK_KB KiB chunks, seed 0) with
+    the launch counts reset just before and read just after: every variant
+    checked bitwise against the plain version (it raises otherwise) and
+    timed. Returns (rows by kernel id for the kernels line, the counts)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    import probe_dma_torch
+    from whisper_at_tpu_torch.ops import probe_dma as pd
+
+    n_rows, chunk_rows, n_chunks = pd.probe_geometry(PROBE_MB, PROBE_CHUNK_KB)
+    x = pd.make_buffer(n_rows).cuda()
+    lines = []
+    result, seconds, counts = run_counted(
+        lambda: probe_dma_torch.probe(x, chunk_rows, PROBE_ITERS, report=lines.append),
+        tuple(PROBE_ROWS))
+    print(f"streaming probe: {x.numel()} B int8 in {n_chunks} chunks of "
+          f"{chunk_rows * pd.LANES} B, {PROBE_ITERS} timed calls a variant, {seconds:.2f} s, "
+          f"launches {counts} [{card}]", flush=True)
+    for line in lines:
+        print(f"probe {line} [{card}]", flush=True)
+    print(f"probe: library_ms of P1, P2-cp and P2-tma is torch.sum(x, dtype=int32), the stream "
+          f"reference of the JAX probe's xla row; P2's rows are its depth-4 rings [{card}]",
+          flush=True)
+    del x
+    nbytes = n_rows * pd.LANES + 4 * (pd.LANES + 1)  # x read once, sums and XOR written
+    rows = {}
+    for kid, name in PROBE_ROWS.items():
+        kernel = result[name]["kernel"]
+        rows[kid] = dict(kernel=kernel, ms=result[name]["ms"],
+                         err=float(max(r["err"] for r in result.values()
+                                       if r["kernel"] is kernel)),
+                         plain_ms=result["plain"]["ms"], library_ms=result["library"]["ms"],
+                         bound=bound(0.0, nbytes, PEAK_FP32_FLOPS))
+    return rows, counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card",
@@ -1096,6 +1145,8 @@ def main() -> int:
     words_k6["err"] = max(words_k6["err"], rows["K6"]["err"])
     rows["K6"].update(words_k6)
     sequential_check(card, model)
+    probe_rows, probe_counts = probe_check(card)
+    rows.update(probe_rows)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to here [{card}]",
           flush=True)
 
@@ -1104,7 +1155,8 @@ def main() -> int:
     path_counts = {"K6": words_counts, "K3-int4": int4_counts, "K4-int4": int4_counts,
                    "K5": int4_counts, "K7": a_counts, "K8-int8": a_counts, "K10": a_counts,
                    "K8": b_counts, "K10-int4": b_counts,
-                   "K9": {rows["K9"]["kernel"].name: k9_launches}}
+                   "K9": {rows["K9"]["kernel"].name: k9_launches},
+                   "P1": probe_counts, "P2-cp": probe_counts, "P2-tma": probe_counts}
     line = {"kernels": [
         {"name": name,
          "route": "cuda",

@@ -1,11 +1,13 @@
 """The port's CUDA kernels against their plain versions, on the card
-(K1-K10, the int4 entries of K3, K4 and K10, the int8 entry of K8).
+(K1-K10, the int4 entries of K3, K4 and K10, the int8 entry of K8, the
+streaming probes P1 and P2).
 
 Every test here needs an NVIDIA GPU and the CUDA toolkit (nvcc); without a
 card they skip. Run them on the card with `pytest -m cuda
 tests/test_torch_cuda.py`. `chip_smoke.py` makes the same comparisons at
 the full headline shapes. Tolerances are bf16-level: the kernels and the
-plain versions round at different points; the DTW trace (K6) is exact.
+plain versions round at different points; the DTW trace (K6) and the
+probes' integer sums and XOR word are exact.
 """
 
 import numpy as np
@@ -309,3 +311,26 @@ def test_transcribe_batched_switches_run_through_their_kernels(dev, monkeypatch,
         assert counts[name] > 0, counts
     assert counts["enc_attention"] == counts["cross_decode"] == counts["cross_decode4"] == 0, counts
     assert result["audio_tag"].shape == (4, 527) and np.isfinite(result["audio_tag"]).all()
+
+
+@pytest.mark.parametrize("mb, chunk_kb", [(8, 256), (1, 1024), (3, 8), (1, 12), (2, 24),
+                                          (64, 1024)])
+def test_probe_kernels(dev, mb, chunk_kb):
+    """P1 and both P2 rings at every depth, bitwise the plain version: many
+    and few stages a block (1 MiB: 64 stages for up to 132 blocks, fewer
+    than the ring's depth), the smallest chunk (8 KB, the sliver itself),
+    stages smaller than the sliver (12 KB chunks: 4 KB stages) and chunks
+    that are no power of two."""
+    from whisper_at_tpu_torch.ops import probe_dma as pd
+
+    n_rows, chunk_rows, _ = pd.probe_geometry(mb, chunk_kb)
+    x = pd.make_buffer(n_rows, seed=1).to(dev)
+    sums, xor = pd.stream_plain(x, chunk_rows)
+    outs = {"auto": pd.stream_auto(x, chunk_rows)}
+    for engine in pd.ENGINES:
+        for nbuf in pd.RING_DEPTHS:
+            outs[f"{engine}-{nbuf}"] = pd.stream_ring(x, chunk_rows, nbuf, engine)
+    torch.cuda.synchronize()
+    for name, (s, w) in outs.items():
+        assert torch.equal(s, sums), name
+        assert torch.equal(w, xor), name

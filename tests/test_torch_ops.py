@@ -158,14 +158,20 @@ def test_log_mel_tone_matches_jax():
 
 def test_kernels_registered_with_sources():
     """Every kernel names an existing CUDA source and the TPU kernel it
-    replaces; nothing was built or launched by the CPU tests."""
+    replaces (the JAX package's ops, or the JAX streaming probe for P1 and
+    P2); nothing was built or launched by the CPU tests."""
+    probes = {"probe_auto": "tools/probe_dma.py:88", "probe_ring_cp": "tools/probe_dma.py:137",
+              "probe_ring_tma": "tools/probe_dma.py:137"}
     assert set(cuda.KERNELS) == {"enc_attention", "enc_mlp", "kv_quant", "kv_quant4",
                                  "cross_decode", "cross_decode4", "w4_matmul", "dtw",
                                  "enc_flash", "fused_mlp", "fused_mlp_int8", "flash_decode",
-                                 "cross_decode_stream", "cross_decode_stream4"}
-    for kernel in cuda.KERNELS.values():
+                                 "cross_decode_stream", "cross_decode_stream4", *probes}
+    for name, kernel in cuda.KERNELS.items():
         assert kernel.library_path().endswith(".so")
-        assert kernel.replaces.startswith("whisper_at_tpu/ops/")
+        if name in probes:
+            assert kernel.replaces == probes[name]
+        else:
+            assert kernel.replaces.startswith("whisper_at_tpu/ops/")
         assert kernel._lib is None
     for name, replaces in (("enc_flash", "flash.py:63"), ("fused_mlp", "fused_mlp.py:101"),
                            ("fused_mlp_int8", "fused_mlp.py:101"),

@@ -3,6 +3,7 @@ card, unported options refuse loudly, invalid options fail as in the JAX
 package, and its standard-library tokenizer matches the JAX package's
 `regex`-based one."""
 
+import os
 import subprocess
 import sys
 
@@ -43,11 +44,27 @@ def test_import_loads_no_jax():
             "whisper_at_tpu_torch.ops.dtw, whisper_at_tpu_torch.ops.median, "
             "whisper_at_tpu_torch.ops.w4_matmul, whisper_at_tpu_torch.ops.enc_flash, "
             "whisper_at_tpu_torch.ops.fused_mlp, whisper_at_tpu_torch.ops.flash_decode, "
-            "whisper_at_tpu_torch.ops.cross_decode_stream; "
+            "whisper_at_tpu_torch.ops.cross_decode_stream, whisper_at_tpu_torch.ops.probe_dma; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
             "'whisper_at_tpu')]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_probe_tool_loads_no_jax():
+    """`tools/probe_dma_torch.py` (and `chip_smoke.py`, which it imports)
+    load neither JAX nor the JAX package."""
+    code = ("import importlib.util, sys; "
+            "spec = importlib.util.spec_from_file_location('probe_dma_torch', "
+            "'tools/probe_dma_torch.py'); "
+            "spec.loader.exec_module(importlib.util.module_from_spec(spec)); "
+            "assert 'chip_smoke' in sys.modules; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
+            "'whisper_at_tpu')]; print(bad); sys.exit(1 if bad else 0)")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120, cwd=root)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
@@ -62,9 +79,11 @@ class _OnCard(torch.Tensor):
 
 def _wrapper_cases():
     """(ops module, kernel, plain function name, wrapper, argument maker) of
-    each entry of K7-K10; the arguments are small and well formed."""
+    each entry of K7-K10, P1 and P2; the arguments are small and well
+    formed."""
     from whisper_at_tpu_torch.models.layers import QuantLinear
-    from whisper_at_tpu_torch.ops import cross_decode_stream, enc_flash, flash_decode, fused_mlp
+    from whisper_at_tpu_torch.ops import (
+        cross_decode_stream, enc_flash, flash_decode, fused_mlp, probe_dma)
 
     bf, i8, f32 = torch.bfloat16, torch.int8, torch.float32
     gen = torch.Generator().manual_seed(0)
@@ -108,11 +127,19 @@ def _wrapper_cases():
         "cross_decode_stream4": (cross_decode_stream, cross_decode_stream.KERNEL4,
                                  "cross_attention_stream4_plain",
                                  cross_decode_stream.cross_attention_stream4, cross(64)),
+        "probe_auto": (probe_dma, probe_dma.KERNEL_AUTO, "stream_plain", probe_dma.stream_auto,
+                       lambda on: (on(rand((128, 128), i8)), 64)),
+        "probe_ring_cp": (probe_dma, probe_dma.KERNEL_CP, "stream_plain", probe_dma.stream_ring,
+                          lambda on: (on(rand((128, 128), i8)), 64, 4, "cp_async")),
+        "probe_ring_tma": (probe_dma, probe_dma.KERNEL_TMA, "stream_plain",
+                           probe_dma.stream_ring,
+                           lambda on: (on(rand((128, 128), i8)), 64, 8, "tma")),
     }
 
 
 @pytest.mark.parametrize("name", ["enc_flash", "fused_mlp", "fused_mlp_int8", "flash_decode",
-                                  "cross_decode_stream", "cross_decode_stream4"])
+                                  "cross_decode_stream", "cross_decode_stream4", "probe_auto",
+                                  "probe_ring_cp", "probe_ring_tma"])
 def test_wrappers_take_the_plain_version_only_on_cpu_tensors(monkeypatch, name):
     """Each new wrapper runs its plain version for CPU tensors and never
     launches; for tensors on the card it launches its kernel once and never

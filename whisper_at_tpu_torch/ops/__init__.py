@@ -1,7 +1,7 @@
 """Device ops of the port. Importing this package registers every
 hand-written CUDA kernel (K1-K10, with the int4 entries of K3, K4 and K10
-and the int8 entry of K8) in `ops.cuda.KERNELS`; nothing is built or
-launched at import time."""
+and the int8 entry of K8, and the streaming probes P1 and P2) in
+`ops.cuda.KERNELS`; nothing is built or launched at import time."""
 
 from . import (  # noqa: F401
     cross_decode,
@@ -13,5 +13,6 @@ from . import (  # noqa: F401
     flash_decode,
     fused_mlp,
     kv_quant,
+    probe_dma,
     w4_matmul,
 )
