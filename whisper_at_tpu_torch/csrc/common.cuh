@@ -2,8 +2,9 @@
 //
 // Every kernel here is compiled for sm_90a by nvcc into its own shared
 // library with a plain C interface (see ops/cuda.py). The tensor-core
-// products use the warp-level mma.sync m16n8k16 bf16 instruction with fp32
-// accumulation; fragments are loaded from shared memory with plain 32-bit
+// products here use the warp-level mma.sync m16n8k16 bf16 instruction with
+// fp32 accumulation (the encoder attention's wgmma products are in
+// attn_sm90.cuh); fragments are loaded from shared memory with plain 32-bit
 // loads, in the register layout the PTX ISA defines for that shape:
 //   A (16x16, row-major): reg0 = (row g,   cols 2t, 2t+1)
 //                         reg1 = (row g+8, cols 2t, 2t+1)
@@ -49,17 +50,6 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(gmem), "r"(n)
                : "memory");
-}
-
-// four 8x8 bf16 matrices from shared memory, transposed: lanes 8i .. 8i+7
-// give the 16-byte rows of matrix i, and r[i] receives, per lane, the
-// elements (rows 2t, 2t+1; column g) of matrix i, i.e. a k-major B fragment
-// register of mma m16n8k16 when the matrix is stored [k][n]
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* smem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -1,8 +1,9 @@
 """K1: encoder self-attention, non-causal, over [B, T, H*64].
 
 Replaces `whisper_at_tpu/ops/flash_enc.py::encoder_attention` (Pallas). The
-CUDA kernel is `csrc/enc_attention.cu` (tiled online softmax on mma.sync;
-its header says what bounds it and why it is shaped so). `enc_attention`
+CUDA kernel is `csrc/enc_attention.cu`, an instance of the Hopper template
+`csrc/attn_sm90.cuh` (TMA ring, wgmma for both products, warp-specialised;
+the headers say what bounds it and why it is shaped so). `enc_attention`
 launches it for CUDA tensors and runs the plain version for CPU tensors.
 """
 

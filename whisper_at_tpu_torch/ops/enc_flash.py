@@ -6,8 +6,9 @@ function (`ops/enc_attention.py`) with that kernel's arithmetic: T padded
 to a multiple of 512 with the padded keys masked, the 64^-0.5 scale applied
 to the fp32 scores, P = exp(S - max) rounded to q's dtype for the value
 product, the output normalized in fp32, padded query rows dropped. The
-CUDA source is `csrc/enc_flash.cu` (K/V tiles through a 3-stage cp.async
-ring, 128 query rows a block); its header gives the bound.
+CUDA source is `csrc/enc_flash.cu`, on K1's template `csrc/attn_sm90.cuh`
+(TMA ring, wgmma, warp-specialised) with the shape that won for both;
+its header gives the bound.
 
 `models/encoder.py` runs it for attn_impl="flash"
 (WHISPER_AT_TPU_ENC_ATTN=flash).
