@@ -9,7 +9,12 @@ It (1) builds every hand-written CUDA kernel of the port from
 each kernel against its plain PyTorch version at the shapes its path gives
 it (the headline workload: large-v1, batch 24, bf16; K5 at the decode
 loop's four weight shapes with 24 and 96 rows; the DTW at the word timing's
-matrix sizes) and times both, then drives five paths of the port at
+matrix sizes) and times both. The decode loop's own operands are timed
+cold, as the loop meets them after the other layers': K5 and its
+torch.matmul yardstick as a CUDA graph of one greedy step's 192 products
+over 32 layers' weights with the L2 flushed before each replay (K5 also
+hot, labelled), K4, K10 and their int4 entries over three K/V sets used in
+turn. Then it drives five paths of the port at
 large-v1 full width with random weights from a seeded generator over
 synthesized int16 audio, each with the kernels' launch counts reset just
 before and read just after, and checks its output:
@@ -49,6 +54,7 @@ result lines. Without a CUDA card it exits non-zero at once.
 """
 
 import contextlib
+import itertools
 import json
 import os
 import subprocess
@@ -99,6 +105,11 @@ DTW_WORST = 448
 SWITCH_ENV = {"WHISPER_AT_TPU_ENC_ATTN": "flash", "WHISPER_AT_TPU_CROSS_DECODE": "stream"}
 SWITCHES_B_OPTS = dict(HEADLINE_OPTS, kv_bits=4, weight_quant=False)
 K8_ROWS = (BATCH, BATCH * BEAM)  # a greedy step, a beam-5 step
+# cold timing: the decode loop reads each layer's weights and cross K/V after
+# the 31 other layers', so it finds them in HBM, not in the 50 MB L2
+L2_FLUSH_BYTES = 128 << 20  # written before each timed replay of a cold graph
+N_LAYERS = 32               # large-v1's decoder layers: one weight set each in K5's step
+COLD_SETS = 3               # K/V sets timed in turn: >= 100 MB touched between reuses
 # the streaming probe (P1, P2): the JAX probe's defaults; P2's rows in the
 # kernels line are its depth-4 rings (every depth is printed)
 PROBE_MB = 512
@@ -161,6 +172,61 @@ def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (iters * replays)
+
+
+def cold_graph_ms(fns, flush, replays: int = 5) -> float:
+    """Mean device time of one replay of a CUDA graph of the calls `fns`, in
+    order. `flush()` runs before each replay, outside the timed span (CUDA
+    events around the replay only), so the graph finds the L2 cold, as the
+    decode loop finds one layer's operands after the other layers'."""
+    for fn in fns:
+        fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in fns:
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(replays):
+        flush()
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / replays
+
+
+def l2_flusher(dev):
+    """A function that writes L2_FLUSH_BYTES, evicting whatever the L2 holds."""
+    scratch = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    return scratch.zero_
+
+
+def cold_sets(tensors, n: int = COLD_SETS) -> list:
+    """`tensors` and n - 1 copies of them, to be used in turn (`cycle_ms`)."""
+    return [tuple(tensors)] + [tuple(t.clone() for t in tensors) for _ in range(n - 1)]
+
+
+def cycle_ms(fn, sets, iters: int) -> float:
+    """Mean device time of fn(*sets[i % len(sets)]) over `iters` calls back
+    to back: each call finds its operands cold once the other sets together
+    exceed the L2, as the decode loop finds a layer's cross K/V."""
+    it = itertools.cycle(sets)
+    return time_ms(lambda: fn(*next(it)), iters)
+
+
+def set_mb(tensors) -> float:
+    return sum(t.numel() * t.element_size() for t in tensors) / 1e6
 
 
 def bound(flops: float, nbytes: float, peak_flops: float):
@@ -429,47 +495,79 @@ COMPARE = {"K1": k1_compare, "K2": k2_compare, "K3": lambda *a: k3_compare(*a)[:
 
 
 def k5_rows(gen, dev) -> dict:
-    """K5 at every weight shape of the decode loop, with 24 and 96 rows:
-    held against its plain version and timed beside it and beside
-    torch.matmul of x with the bf16 weight (the full-width product int4
-    replaces), each as device time from a CUDA graph (`graph_ms`); K5's
-    eager time per call, host launch included, is printed too. The
-    kernels-line row sums one greedy step of one decoder layer: its six
-    int4 products at M = 24."""
+    """K5 at every weight shape of the decode loop, with 24 and 96 rows,
+    held against its plain version and timed beside torch.matmul of x with
+    the bf16 weight (the full-width product int4 replaces).
+
+    Cold, as the decode loop meets them: N_LAYERS layers of weights, each
+    layer its own six (qkv, three of the out shape, fc1, fc2; 367 MB of
+    int4, 1.47 GB of bf16 for torch.matmul). One greedy layer-step is a CUDA
+    graph of all 192 products in layer order, reported per layer; each
+    shape is a graph of its products over the 32 layers, reported per
+    product (`cold_graph_ms`, the L2 flushed before each replay). Hot, as
+    before: one weight from a graph of 20 calls replayed (`graph_ms`), and
+    the eager time per call, host launch included. The kernels-line row is
+    the cold layer-step at M = 24."""
     from whisper_at_tpu_torch.models.layers import pack4
     from whisper_at_tpu_torch.ops import w4_matmul
 
-    total = dict(err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, ops=0.0, bytes=0.0)
-    tols = []
-    for m in W4_ROWS:
+    flush = l2_flusher(dev)
+    layers = []  # per layer: (shape name, packed int4 weight, bf16 weight) in step order
+    for _ in range(N_LAYERS):
+        layer = []
         for name, (k, n) in W4_SHAPES.items():
-            x = (torch.randn((m, k), generator=gen, device=dev)).to(torch.bfloat16)
-            codes = torch.randint(-7, 8, (n, k), generator=gen, device=dev, dtype=torch.int8)
-            wp = pack4(codes)
-            w16 = codes.to(torch.bfloat16)
+            for _ in range(W4_PER_LAYER[name]):
+                codes = torch.randint(-7, 8, (n, k), generator=gen, device=dev,
+                                      dtype=torch.int8)
+                layer.append((name, pack4(codes), codes.to(torch.bfloat16)))
+        layers.append(layer)
+    products = [p for layer in layers for p in layer]
+    total = dict(err=0.0, plain_ms=0.0, ops=0.0, bytes=0.0)
+    tols, steps = [], {}
+    for m in W4_ROWS:
+        xs = {name: torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+              for name, (k, n) in W4_SHAPES.items()}
+        for name, (k, n) in W4_SHAPES.items():
+            x = xs[name]
+            mine = [(wp, w16) for nm, wp, w16 in products if nm == name]
+            wp, w16 = mine[0]
             err, tol = k5_compare(x, wp)
-            ms = graph_ms(lambda: w4_matmul.w4_matmul(x, wp))
+            cold = cold_graph_ms([lambda wp=wp: w4_matmul.w4_matmul(x, wp) for wp, _ in mine],
+                                 flush) / len(mine)
+            cold_lib = cold_graph_ms([lambda w=w: torch.matmul(x, w.t()) for _, w in mine],
+                                     flush) / len(mine)
+            hot = graph_ms(lambda: w4_matmul.w4_matmul(x, wp))
             eager_ms = time_ms(lambda: w4_matmul.w4_matmul(x, wp), 100)
             plain_ms = graph_ms(lambda: w4_matmul.w4_matmul_plain(x, wp), 5, 2)
-            lib_ms = graph_ms(lambda: torch.matmul(x, w16.t()))
+            hot_lib = graph_ms(lambda: torch.matmul(x, w16.t()))
             ops, nbytes = 2.0 * m * n * k, n * k / 2 + 2.0 * m * k + 4.0 * m * n
             b_ms, b_by = bound(ops, nbytes, PEAK_BF16_FLOPS)
-            print(f"K5 {name} M={m} K={k} N={n}: max_abs_err={err:.3e} (tol {tol}) "
-                  f"kernel_ms={ms:.4f} (eager, launch included: {eager_ms:.4f}) "
-                  f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (torch.matmul, bf16 "
-                  f"weight) bound_ms={b_ms:.4f} ({b_by}), device times from CUDA graphs",
-                  flush=True)
+            print(f"K5 {name} M={m} K={k} N={n}: max_abs_err={err:.3e} (tol {tol}) cold: "
+                  f"kernel_ms={cold:.4f} library_ms={cold_lib:.4f} (torch.matmul, bf16 weight; mean "
+                  f"over the {len(mine)} weights of {N_LAYERS} layers, one graph, L2 flushed "
+                  f"before each replay); hot: kernel_ms={hot:.4f} library_ms={hot_lib:.4f} (one "
+                  f"weight, graph of 20 calls); eager, launch included, hot: {eager_ms:.4f}; "
+                  f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
             tols.append(f"M={m} {name}: {err:.2e} <= {tol}")
             total["err"] = max(total["err"], err)
             if m == BATCH:
                 reps = W4_PER_LAYER[name]
-                total["ms"] += reps * ms
                 total["plain_ms"] += reps * plain_ms
-                total["library_ms"] += reps * lib_ms
                 total["ops"] += reps * ops
                 total["bytes"] += reps * nbytes
-    return dict(module=w4_matmul, err=total["err"], tol="; ".join(tols), ms=total["ms"],
-                plain_ms=total["plain_ms"], library_ms=total["library_ms"],
+        step = cold_graph_ms([lambda nm=nm, wp=wp: w4_matmul.w4_matmul(xs[nm], wp)
+                              for nm, wp, _ in products], flush) / N_LAYERS
+        step_lib = cold_graph_ms([lambda nm=nm, w=w: torch.matmul(xs[nm], w.t())
+                                  for nm, _, w in products], flush) / N_LAYERS
+        steps[m] = (step, step_lib)
+        print(f"K5 greedy layer-step M={m}, cold: kernel_ms={step:.4f} library_ms={step_lib:.4f} "
+              f"(torch.matmul, bf16 weights) = {step / step_lib:.3f}x, per layer of a graph of "
+              f"{len(products)} products over {N_LAYERS} layers' weights", flush=True)
+    del layers, products
+    return dict(module=w4_matmul, err=total["err"],
+                tol="; ".join(tols) + f"; cold layer-step at M={W4_ROWS[1]}: "
+                f"{steps[W4_ROWS[1]][0]:.4f} ms, torch.matmul {steps[W4_ROWS[1]][1]:.4f} ms",
+                ms=steps[BATCH][0], plain_ms=total["plain_ms"], library_ms=steps[BATCH][1],
                 bound=bound(total["ops"], total["bytes"], PEAK_BF16_FLOPS))
 
 
@@ -610,11 +708,16 @@ def kernel_checks(card: str):
         e, tol = k4_compare(qd, kq, ks, vq, vs, bias, H)
         errs.append(e)
         tols.append(f"G={groups}: err {e:.3e} <= {tol}")
-    # timed at G=1, the per-token step; the bound reads the Ta valid positions
-    # of K/V and their scales (the masked pad columns need not be read)
+    # timed at G=1, the per-token step, cold: COLD_SETS copies of the K/V in
+    # turn (`cycle_ms`); the bound reads the Ta valid positions of K/V and
+    # their scales (the masked pad columns need not be read)
+    sets = cold_sets((kq, ks, vq, vs))
     rows["K4"] = dict(
-        module=cross_decode, err=max(errs), tol="; ".join(tols),
-        ms=time_ms(lambda: cross_decode.cross_attention_int8(qd, kq, ks, vq, vs, bias, H), 50),
+        module=cross_decode, err=max(errs),
+        tol="; ".join(tols) + "; " + cold_note(
+            sets, time_ms(lambda: cross_decode.cross_attention_int8(qd, kq, ks, vq, vs, bias, H),
+                          50)),
+        ms=cycle_ms(lambda *kv: cross_decode.cross_attention_int8(qd, *kv, bias, H), sets, 48),
         plain_ms=time_ms(lambda: cross_decode.cross_attention_int8_plain(
             qd, kq, ks, vq, vs, bias, H), 5, 1),
         library_ms=None,
@@ -639,8 +742,8 @@ def kernel_checks(card: str):
     k9_launches = flash_decode.KERNEL.launches - before
 
     # ---- K10 streamed cross decode on the same inputs: G = 5 and G = 1 ----- #
-    rows["K10"] = k10_row(randn, (kq, ks, vq, vs, bias), 8, rows["K4"])
-    del kern, kq, ks, vq, vs
+    rows["K10"] = k10_row(randn, sets, bias, 8, rows["K4"])
+    del kern, kq, ks, vq, vs, sets
 
     # ---- K3-int4: the same projection, packed int4 codes [24, 1536, 640] --- #
     err, tol, kern = k3_compare(xa, wk, wv, bv, bits=4)
@@ -663,9 +766,13 @@ def kernel_checks(card: str):
         e, tol = k4_compare(qd, kp, ks, vp, vs, bias, H, bits=4)
         errs.append(e)
         tols.append(f"G={groups}: err {e:.3e} <= {tol}")
+    sets = cold_sets((kp, ks, vp, vs))
     rows["K4-int4"] = dict(
-        module=cross_decode, kernel=cross_decode.KERNEL4, err=max(errs), tol="; ".join(tols),
-        ms=time_ms(lambda: cross_decode.cross_attention_int4(qd, kp, ks, vp, vs, bias, H), 50),
+        module=cross_decode, kernel=cross_decode.KERNEL4, err=max(errs),
+        tol="; ".join(tols) + "; " + cold_note(
+            sets, time_ms(lambda: cross_decode.cross_attention_int4(qd, kp, ks, vp, vs, bias, H),
+                          50)),
+        ms=cycle_ms(lambda *kv: cross_decode.cross_attention_int4(qd, *kv, bias, H), sets, 48),
         plain_ms=time_ms(lambda: cross_decode.cross_attention_int4_plain(
             qd, kp, ks, vp, vs, bias, H), 5, 1),
         library_ms=None,
@@ -673,8 +780,8 @@ def kernel_checks(card: str):
                     2 * BATCH * T_ENC * D / 2 + 2 * 4.0 * BATCH * H * T_ENC
                     + 4.0 * T_ENC + 2.0 * BATCH * H * DH + 4.0 * BATCH * H * DH,
                     PEAK_FP32_FLOPS))
-    rows["K10-int4"] = k10_row(randn, (kp, ks, vp, vs, bias), 4, rows["K4-int4"])
-    del kern, kp, ks, vp, vs, xa
+    rows["K10-int4"] = k10_row(randn, sets, bias, 4, rows["K4-int4"])
+    del kern, kp, ks, vp, vs, xa, sets
 
     # ---- K5 int4-weight matmul: the decode loop's four weight shapes ------- #
     rows["K5"] = k5_rows(gen, dev)
@@ -702,13 +809,20 @@ def kernel_checks(card: str):
     return rows, k9_launches
 
 
-def k10_row(randn, kv, bits: int, k4_row: dict) -> dict:
-    """K10 (or K10-int4) on K3's output at a beam step (G = 5) and the
-    greedy step (G = 1), timed at G = 1 beside K4 on the same inputs; the
-    bound is K4's (the same function over the same bytes)."""
+def cold_note(sets, hot_ms: float) -> str:
+    mb = set_mb(sets[0])
+    return (f"cold over {len(sets)} K/V sets of {mb:.1f} MB used in turn "
+            f"({(len(sets) - 1) * mb:.0f} MB between reuses); hot (one set) {hot_ms:.4f} ms")
+
+
+def k10_row(randn, sets, bias, bits: int, k4_row: dict) -> dict:
+    """K10 (or K10-int4) on K3's output (`sets[0]`) at a beam step (G = 5)
+    and the greedy step (G = 1), timed cold at G = 1 over the same K/V sets
+    as K4 (`cycle_ms`) beside it; the bound is K4's (the same function over
+    the same bytes)."""
     from whisper_at_tpu_torch.ops import cross_decode_stream as cs
 
-    kq, ks, vq, vs, bias = kv
+    kq, ks, vq, vs = sets[0]
     stream, plain, kernel = ((cs.cross_attention_stream4, cs.cross_attention_stream4_plain,
                               cs.KERNEL4) if bits == 4 else
                              (cs.cross_attention_stream, cs.cross_attention_stream_plain,
@@ -719,9 +833,12 @@ def k10_row(randn, kv, bits: int, k4_row: dict) -> dict:
         e, tol = k10_compare(qd, kq, ks, vq, vs, bias, H, bits)
         errs.append(e)
         tols.append(f"G={groups}: err {e:.3e} <= {tol}")
-    tols.append(f"K4{'-int4' if bits == 4 else ''} {k4_row['ms']:.4f} ms at G=1")
-    return dict(module=cs, kernel=kernel, err=max(errs), tol="; ".join(tols),
-                ms=time_ms(lambda: stream(qd, kq, ks, vq, vs, bias, H), 50),
+    ms = cycle_ms(lambda *kv: stream(qd, *kv, bias, H), sets, 48)
+    k4 = f"K4{'-int4' if bits == 4 else ''}"
+    tols.append(f"{k4} {k4_row['ms']:.4f} ms at G=1 cold, this kernel {ms / k4_row['ms']:.3f}x "
+                f"it; " + cold_note(sets, time_ms(lambda: stream(qd, kq, ks, vq, vs, bias, H),
+                                                  50)))
+    return dict(module=cs, kernel=kernel, err=max(errs), tol="; ".join(tols), ms=ms,
                 plain_ms=time_ms(lambda: plain(qd, kq, ks, vq, vs, bias, H), 5, 1),
                 library_ms=None, bound=k4_row["bound"])
 

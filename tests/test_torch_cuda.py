@@ -133,8 +133,14 @@ def test_kv_quant_and_cross_decode_kernels(dev, groups):
     _close(out, ref, rel=1e-3)
 
 
+# large-v1's four decode weight shapes (K, N): qkv, out, fc1, fc2
+_W4_SHAPES = [(1280, 3840), (1280, 1280), (1280, 5120), (5120, 1280)]
+
+
 @pytest.mark.parametrize("m, k, n", [(1, 256, 128), (24, 1280, 384), (96, 512, 256),
-                                     (120, 5120, 128), (256, 96, 64)])
+                                     (120, 5120, 128), (256, 96, 64)] +
+                         [(m, k, n) for m in (1, 16, 17, 24, 33, 96, 120, 256)
+                          for k, n in _W4_SHAPES])
 def test_w4_matmul_kernel(dev, m, k, n):
     """K5 against its plain version: the products of bf16 x int4 are exact
     in fp32, so only the summation order differs (2^-18 of sum |x| |w|)."""
@@ -150,6 +156,24 @@ def test_w4_matmul_kernel(dev, m, k, n):
     torch.cuda.synchronize()
     scale = float((x.float().abs() @ codes.float().abs().t()).max())
     assert float((out - ref).abs().max()) <= 2 ** -18 * scale
+
+
+@pytest.mark.parametrize("m, k, n", [(0, 1280, 1280), (257, 1280, 1280), (24, 1280, 96),
+                                     (24, 1280, 0), (24, 48, 128), (24, 5152, 128)])
+def test_w4_matmul_refuses_shapes_outside_its_contract(dev, m, k, n):
+    """1 <= M <= 256, N a multiple of 64, K a multiple of 32 up to 5120: the
+    wrapper raises before launching anything else."""
+    from whisper_at_tpu_torch.ops.w4_matmul import KERNEL, w4_matmul
+
+    x = torch.zeros((m, k), device=dev, dtype=torch.bfloat16)
+    wp = torch.zeros((n, k // 2), device=dev, dtype=torch.int8)
+    before = KERNEL.launches
+    with pytest.raises(ValueError):
+        w4_matmul(x, wp)
+    with pytest.raises(ValueError, match="pack"):
+        w4_matmul(torch.zeros((24, 1280), device=dev, dtype=torch.bfloat16),
+                  torch.zeros((128, 320), device=dev, dtype=torch.int8))
+    assert KERNEL.launches == before
 
 
 @pytest.mark.parametrize("groups", [1, 5])
@@ -325,6 +349,75 @@ def test_cross_decode_stream_kernels(dev, bits, groups):
     kernel, plain = ((cs.cross_attention_stream4, cs.cross_attention_stream4_plain) if bits == 4
                      else (cs.cross_attention_stream, cs.cross_attention_stream_plain))
     _close(kernel(q, *kern, bias, h), plain(q, *kern, bias, h), rel=1e-3)
+
+
+def _stream_inputs(gen, a, h, ta, ta_pad, groups, bits):
+    """Random K3-layout codes over the whole range, positive scales, K4's pad
+    bias and q as the decoder scales it."""
+    from whisper_at_tpu_torch.models.layers import pack4
+    from whisper_at_tpu_torch.ops.cross_decode import pad_bias
+
+    lim = 7 if bits == 4 else 127
+    kq, vq = (torch.randint(-lim, lim + 1, (a, ta_pad, h * 64), generator=gen, device="cuda",
+                            dtype=torch.int8) for _ in range(2))
+    if bits == 4:
+        kq, vq = pack4(kq), pack4(vq)
+    ks, vs = ((torch.rand((a, h, ta_pad), generator=gen, device="cuda") + 0.5) * s
+              for s in (0.02 if bits == 8 else 0.3, 0.01))
+    q = _randn(gen, a, h * groups, 64, scale=0.125)
+    return q, kq, ks, vq, vs, pad_bias(ta, ta_pad, "cuda")
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("a", [1, 24])
+@pytest.mark.parametrize("groups", [1, 5, 8, 9, 12])
+@pytest.mark.parametrize("ta", [1, 63, 64, 65, 300, 1500])
+def test_cross_decode_stream_kernels_at_edges(dev, bits, a, groups, ta):
+    """K10 and K10-int4 at large-v1's 20 heads, one and 24 audio rows, the
+    greedy step, a beam step and G around the 8 rows of a block, and Ta on
+    both sides of a 64-position boundary, against the plain version that
+    splits the positions as the kernel does."""
+    from whisper_at_tpu_torch.ops import cross_decode_stream as cs
+    from whisper_at_tpu_torch.ops.kv_quant import pad_ta
+
+    gen = torch.Generator(device=dev).manual_seed(ta * 100 + groups + a)
+    args = _stream_inputs(gen, a, 20, ta, pad_ta(ta), groups, bits)
+    kernel, plain = ((cs.cross_attention_stream4, cs.cross_attention_stream4_plain) if bits == 4
+                     else (cs.cross_attention_stream, cs.cross_attention_stream_plain))
+    _close(kernel(*args, 20), plain(*args, 20), rel=1e-3)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("a, ta_pad", [(2, 192), (1, 64)])
+def test_cross_decode_stream_kernels_take_half_a_stage(dev, bits, a, ta_pad):
+    """Ta_pad a multiple of 64 but not of the kernel's 128-position stage:
+    the last stage's tail weighs nothing."""
+    from whisper_at_tpu_torch.ops import cross_decode_stream as cs
+
+    gen = torch.Generator(device=dev).manual_seed(ta_pad + a)
+    args = _stream_inputs(gen, a, 4, ta_pad - 10, ta_pad, 3, bits)
+    kernel, plain = ((cs.cross_attention_stream4, cs.cross_attention_stream4_plain) if bits == 4
+                     else (cs.cross_attention_stream, cs.cross_attention_stream_plain))
+    _close(kernel(*args, 4), plain(*args, 4), rel=1e-3)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_cross_decode_stream_kernels_keep_rows_apart(dev, bits):
+    """An inf scale in another head, and every scale of another audio row
+    inf, reach no output but their own."""
+    from whisper_at_tpu_torch.ops import cross_decode_stream as cs
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    q, kq, ks, vq, vs, bias = _stream_inputs(gen, 2, 20, 1500, 1536, 1, bits)
+    kernel = cs.cross_attention_stream4 if bits == 4 else cs.cross_attention_stream
+    clean = kernel(q, kq, ks, vq, vs, bias, 20)
+    ks, vs = ks.clone(), vs.clone()
+    ks[1], vs[1] = float("inf"), float("inf")
+    ks[0, 3, 700], vs[0, 3, 5] = float("inf"), float("inf")
+    out = kernel(q, kq, ks, vq, vs, bias, 20)
+    torch.cuda.synchronize()
+    keep = [h for h in range(20) if h != 3]
+    assert torch.equal(out[0, keep], clean[0, keep])
 
 
 @pytest.mark.parametrize("variant", ["a", "b"])

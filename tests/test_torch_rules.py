@@ -160,6 +160,33 @@ def test_wrappers_take_the_plain_version_only_on_cpu_tensors(monkeypatch, name):
     assert len(launched) == 1
 
 
+@pytest.mark.parametrize("m, k, n", [(0, 1280, 1280), (257, 1280, 1280), (24, 1280, 96),
+                                     (24, 48, 128), (24, 5152, 128), (24, 1280, 0)])
+def test_w4_matmul_wrapper_refuses_shapes_outside_its_contract(monkeypatch, m, k, n):
+    """K5's wrapper, given tensors on the card, raises for M outside 1..256,
+    N not a multiple of 64, K not a multiple of 32 or above 5120, before
+    any launch."""
+    from whisper_at_tpu_torch.ops import w4_matmul
+
+    launched = []
+    monkeypatch.setattr(w4_matmul.KERNEL, "launch", lambda *a: launched.append(a))
+    monkeypatch.setattr(w4_matmul, "stream_handle", lambda device: None)
+
+    def on_card(t):
+        return torch.Tensor._make_subclass(_OnCard, t)
+
+    x = on_card(torch.zeros((m, k), dtype=torch.bfloat16))
+    with pytest.raises(ValueError):
+        w4_matmul.w4_matmul(x, on_card(torch.zeros((n, k // 2), dtype=torch.int8)))
+    with pytest.raises(ValueError, match="pack"):
+        w4_matmul.w4_matmul(on_card(torch.zeros((24, 1280), dtype=torch.bfloat16)),
+                            on_card(torch.zeros((128, 320), dtype=torch.int8)))
+    assert not launched
+    w4_matmul.w4_matmul(on_card(torch.zeros((24, 1280), dtype=torch.bfloat16)),
+                        on_card(torch.zeros((128, 640), dtype=torch.int8)))
+    assert len(launched) == 1
+
+
 def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

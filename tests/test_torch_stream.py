@@ -96,6 +96,43 @@ def test_stream_plain_equals_k4_plain_in_fp32():
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("a, h, g, ta_pad, split", [
+    (24, 20, 1, 1536, (1, 12)),   # large-v1 at batch 24: 480 blocks fill a wave
+    (1, 20, 1, 1536, (12, 1)),    # one audio row: every stage a block of its own
+    (24, 20, 12, 1536, (1, 12)),  # two row slices of 8
+    (2, 4, 1, 192, (2, 1)),       # a last stage of 64 positions
+    (6, 20, 1, 1536, (4, 3)),
+])
+def test_stream_splits_fill_one_wave(a, h, g, ta_pad, split):
+    """K10's positions split into runs of 128-position stages, as many as
+    one wave of blocks allows, none empty; the kernel and its plain version
+    both take the split from here."""
+    from whisper_at_tpu_torch.ops.cross_decode_stream import splits
+
+    n_split, per = splits(a, h, g, ta_pad)
+    assert (n_split, per) == split
+    n_stages = -(-ta_pad // 128)
+    assert (n_split - 1) * per < n_stages <= n_split * per
+
+
+@pytest.mark.parametrize("a, ta, ta_pad", [(1, 150, 192), (2, 300, 320), (3, 1, 64)])
+def test_stream_plain_equals_k4_plain_at_a_half_stage(a, ta, ta_pad):
+    """Ta_pad a multiple of 64 but not of the kernel's 128-position stage:
+    the tail past Ta_pad weighs nothing, and in fp32 the split online
+    softmax is K4's softmax up to rounding (2e-5 relative)."""
+    rng = np.random.default_rng(ta)
+    h, dh, g = 4, 64, 3
+    q = rng.standard_normal((a, h * g, dh)).astype(np.float32)
+    kq, vq = (rng.integers(-127, 128, (a, ta_pad, h * dh)).astype(np.int8) for _ in range(2))
+    ks, vs = (np.abs(rng.standard_normal((a, h, ta_pad))).astype(np.float32) * 0.02
+              for _ in range(2))
+    inputs = (_t(q), _t(kq), _t(ks), _t(vq), _t(vs),
+              cross_decode.pad_bias(ta, ta_pad, "cpu"), h)
+    got = cross_attention_stream(*inputs).numpy()
+    want = cross_decode.cross_attention_int8(*inputs).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5 * np.abs(want).max())
+
+
 def test_flash_decode_matches_jax_kernel():
     """K9 against the JAX kernel at bh = 32, s = 700 (700 % 512 != 0: the
     tail is masked), at the JAX test's tolerance (atol 2e-5). The JAX

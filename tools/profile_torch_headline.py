@@ -60,7 +60,8 @@ from chip_smoke import (  # noqa: E402
 # device kernels of the port, by the name of their __global__ function
 # (K1 and K7 are both attn_sm90's attn_kernel; a call runs one of them)
 PORT_KERNELS = ("attn_kernel", "enc_mlp", "kv_quant",
-                "cross_decode_kernel", "cross_decode_stream_kernel", "w4_matmul_kernel",
+                "cross_decode_kernel", "cross_decode_stream_kernel",
+                "cross_decode_stream_combine", "w4_matmul_kernel",
                 "fused_mlp_kernel", "fused_mlp_combine", "flash_decode", "dtw")
 
 

@@ -54,17 +54,12 @@
 // clock on each of 132 SMs is ~0.26 ms at 1.98 GHz, as long as the two
 // products, so the softmax has to overlap the tensor cores.
 //
-// The tensor maps are encoded on the host per call, by the driver's
-// cuTensorMapEncodeTiled. The shared build flags do not link -lcuda, so the
-// function is taken from the runtime: cudaGetDriverEntryPointByVersion on
-// CUDA >= 12.5, else cudaGetDriverEntryPoint with its query-result argument
-// (CUDA 12.0-12.4). A toolkit with neither signature fails at build time.
-// A map that does not encode returns ENCODE_ERROR + the CUresult.
+// The tensor maps are encoded on the host per call (hopper.cuh, the
+// copy engine's helpers shared with K10); a map that does not encode
+// returns ENCODE_ERROR + the CUresult.
 #pragma once
 
-#include <cuda.h>
-
-#include "common.cuh"
+#include "hopper.cuh"
 
 // Everything here has internal linkage: each kernel library (K1's, K7's)
 // holds its own copy, and a static of one (run's `configured`) is never
@@ -78,7 +73,6 @@ constexpr int BKV = 128;                // keys per tile
 constexpr int WG_ROWS = 64;             // query rows of a consumer warpgroup
 constexpr int WG_TILE = WG_ROWS * ROW;  // 8 KB
 constexpr int KV_TILE = BKV * ROW;      // 16 KB
-constexpr int ENCODE_ERROR = 10000;
 constexpr int REGS_ERROR = 20000;
 
 constexpr int NC = 3;                   // consumer warpgroups
@@ -96,63 +90,7 @@ constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = ((ENTRY_REGS * (NC + 1) - PRODUCER_REGS) / NC) / 8 * 8;
 static_assert(CONSUMER_REGS <= 256, "setmaxnreg takes at most 256");
 
-// ---- shared memory, mbarriers, TMA (32-bit shared-window addresses) ------ //
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-// one arrival that also expects `bytes` of copies to complete on bar
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// wait for the completion of the barrier's phase of this parity; a wait of
-// over 2^31 clocks (~1 s) traps, so a lost copy fails the launch instead of
-// hanging the card (a 32-bit clock keeps one register, not two, live)
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  const uint32_t start = static_cast<uint32_t>(clock());
-  uint32_t done = 0;
-  while (!done) {
-    if (static_cast<uint32_t>(clock()) - start > (1u << 31)) __trap();
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// mbar_wait by a whole warp, converged again before the .aligned wgmma
-// instructions that follow
-__device__ __forceinline__ void warp_wait(uint32_t bar, uint32_t parity) {
-  mbar_wait(bar, parity);
-  __syncwarp();
-}
-
-// the box of `map` at coordinates {c0, c1, c2} into shared memory at dst;
-// its bytes complete on bar
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                         int c2, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
+// ---- TMA store (the loads and mbarriers are hopper.cuh's) ---------------- //
 // shared memory at src into the box of `map` at {c0, c1, c2} (elements
 // outside the tensor are not written); returns once the copy has read
 // shared memory
@@ -438,7 +376,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       mbar_init(r.v_full(st), 1);
       mbar_init(r.kv_empty(st), live * 128);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -466,46 +404,12 @@ __global__ void __launch_bounds__(THREADS, 1)
 }
 
 // ---- host ------------------------------------------------------------------- //
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-inline cudaError_t encode_function(EncodeTiled* fn) {
-  static EncodeTiled cached = nullptr;
-  if (cached == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                           cudaEnableDefault, &found);
-#else
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e != cudaSuccess) return e;
-    if (found != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorSymbolNotFound;
-    cached = reinterpret_cast<EncodeTiled>(p);
-  }
-  *fn = cached;
-  return cudaSuccess;
-}
-
 // the 3-D map of x [B, T, H*64] bf16 (innermost first) whose box is
 // {64, rows, 1}; 0, or ENCODE_ERROR + the CUresult
 inline int encode_map(EncodeTiled fn, CUtensorMap* map, const void* x, int B, int T, int H,
                       int rows) {
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(H) * DH, static_cast<cuuint64_t>(T),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(H) * ROW,
-                                 static_cast<cuuint64_t>(T) * H * ROW};
-  const cuuint32_t box[3] = {DH, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  const CUresult res =
-      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims, strides, box, step,
-         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : ENCODE_ERROR + static_cast<int>(res);
+  return encode_3d(fn, map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, H * DH, T, B, DH, rows,
+                   CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B);
 }
 
 // q, k, v, out: contiguous, 16-byte aligned [B, T, H*64] bf16

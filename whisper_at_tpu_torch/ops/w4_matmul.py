@@ -2,8 +2,9 @@
 
 Replaces `whisper_at_tpu/ops/w4_matmul.py::w4_matmul` (Pallas). The CUDA
 source is `csrc/w4_matmul.cu`; its header gives the bound and the design:
-the packed weight is streamed once and its nibbles widened in registers, so
-no bf16 copy of the weight is ever written. `models/layers.QuantLinear4`
+the packed weight is read once, 16 bytes a lane, straight into registers and
+its nibbles widened there, so no bf16 copy of the weight is ever written; K
+is split over a cluster of up to 8 blocks, summed in rank order. `models/layers.QuantLinear4`
 calls it for bf16 rows on the card (M <= 256) and applies the scale and
 bias epilogue.
 
@@ -24,8 +25,9 @@ KERNEL = CudaKernel(
     replaces="whisper_at_tpu/ops/w4_matmul.py:67",
 )
 MAX_ROWS = 256
-K_STEP = 32      # the kernel's K chunk
-N_TILE = 64      # output columns per block
+K_STEP = 32      # K a lane's 16-byte weight load covers
+N_STEP = 64
+MAX_K = 5120     # 8 blocks of a cluster x 5 chunks of 128
 
 
 def w4_matmul_plain(x: torch.Tensor, wp: torch.Tensor) -> torch.Tensor:
@@ -47,11 +49,9 @@ def w4_matmul(x: torch.Tensor, wp: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"wp {tuple(wp.shape)} does not pack K = {k}")
     if not 0 < m <= MAX_ROWS:
         raise ValueError(f"the kernel takes 1 to {MAX_ROWS} rows, got {m}")
-    # K splits over a cluster of 1, 2, 4 or 8 blocks, each of at most 20 chunks
-    if n % N_TILE or not any(k % (s * K_STEP) == 0 and k // (s * K_STEP) <= 20
-                             for s in (8, 4, 2, 1)):
-        raise ValueError(f"the kernel takes N a multiple of {N_TILE} and K a multiple of "
-                         f"{K_STEP} up to 5120, got K={k}, N={n}")
+    if not n or n % N_STEP or not k or k % K_STEP or k > MAX_K:
+        raise ValueError(f"the kernel takes N a multiple of {N_STEP} and K a multiple of "
+                         f"{K_STEP} up to {MAX_K}, got K={k}, N={n}")
     out = torch.empty((m, n), device=x.device, dtype=torch.float32)
     KERNEL.launch(ptr(x), ptr(wp), ptr(out), m, n, k, stream_handle(x.device))
     return out
