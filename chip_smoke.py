@@ -13,8 +13,12 @@ matrix sizes) and times both. The decode loop's own operands are timed
 cold, as the loop meets them after the other layers': K5 and its
 torch.matmul yardstick as a CUDA graph of one greedy step's 192 products
 over 32 layers' weights with the L2 flushed before each replay (K5 also
-hot, labelled), K4, K10 and their int4 entries over three K/V sets used in
-turn. Then it drives five paths of the port at
+hot, labelled); K4, K10 and their int4 entries over K/V sets used in
+turn, eager and in CUDA graphs, at the greedy step and a beam step at
+batch 24 and at the sequential call's single audio row
+(`cross_decode_points`), each K4 point printed beside K10 on the same
+bytes, the bound, the split of the positions K4 chose and the kernel
+before its redesign as recorded (K4_BEFORE). Then it drives five paths of the port at
 large-v1 full width with random weights from a seeded generator over
 synthesized int16 audio, each with the kernels' launch counts reset just
 before and read just after, and checks its output:
@@ -110,6 +114,7 @@ K8_ROWS = (BATCH, BATCH * BEAM)  # a greedy step, a beam-5 step
 L2_FLUSH_BYTES = 128 << 20  # written before each timed replay of a cold graph
 N_LAYERS = 32               # large-v1's decoder layers: one weight set each in K5's step
 COLD_SETS = 3               # K/V sets timed in turn: >= 100 MB touched between reuses
+A1_MB = 100                 # at A = 1 (a 3.9 MB set) enough sets to touch this between reuses
 # the streaming probe (P1, P2): the JAX probe's defaults; P2's rows in the
 # kernels line are its depth-4 rings (every depth is printed)
 PROBE_MB = 512
@@ -225,8 +230,82 @@ def cycle_ms(fn, sets, iters: int) -> float:
     return time_ms(lambda: fn(*next(it)), iters)
 
 
+def host_ms(fn, sets, iters: int) -> float:
+    """Mean host time of one call fn(*s), sets in turn, over `iters` calls
+    issued without waiting for the card: what the wrapper costs the host."""
+    it = itertools.cycle(sets)
+    fn(*next(it))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn(*next(it))
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / iters
+
+
+def cold_cycle_ms(fn, sets, replays: int = 5) -> float:
+    """Mean device time of one call fn(*s) in a CUDA graph of one call per
+    set of `sets`, in turn: each call finds its operands cold as in
+    `cycle_ms`, and the host's cost of launching eagerly stays off the
+    clock."""
+    return cold_graph_ms([lambda s=s: fn(*s) for s in sets], lambda: None, replays) / len(sets)
+
+
 def set_mb(tensors) -> float:
     return sum(t.numel() * t.element_size() for t in tensors) / 1e6
+
+
+def k4_bound(a: int, groups: int, bits: int):
+    """K4's bound at A audio rows, G query rows a head, T_ENC valid
+    positions: the valid positions' K and V codes and scales and the bias
+    read once, q read and out written once; 4 A H G T 64 fp32 operations."""
+    return bound(4.0 * a * H * groups * T_ENC * DH,
+                 2 * a * T_ENC * D * bits / 8 + 2 * 4.0 * a * H * T_ENC + 4.0 * T_ENC
+                 + 2.0 * a * H * groups * DH + 4.0 * a * H * groups * DH,
+                 PEAK_FP32_FLOPS)
+
+
+# the points at which K4 and K10 are timed cold: (A, G), the greedy step at
+# batch 24, a beam step and the sequential call's step
+K4_POINTS = ((BATCH, 1), (BATCH, BEAM), (1, 1))
+# K4 and K4-int4 before their redesign (git 5094ee7) at K4_POINTS: ms cold,
+# eager over the K/V sets (`cross_decode_points`), the mean of two runs
+# recorded on an NVIDIA H100 80GB HBM3 at 700 W, not measured in the run
+# that prints them
+K4_BEFORE = {8: {(BATCH, 1): 0.0882, (BATCH, BEAM): 0.1472, (1, 1): 0.0388},
+             4: {(BATCH, 1): 0.0786, (BATCH, BEAM): 0.1390, (1, 1): 0.0377}}
+
+
+def cross_decode_points(randn, kv, bias, bits: int) -> dict:
+    """K4 (or K4-int4) and K10 (or K10-int4) on the same bytes, cold, at
+    K4_POINTS: at batch 24 over COLD_SETS copies of kv (K3's layout,
+    [BATCH, 1536, ...]), at A = 1 over enough copies of kv's first audio row
+    to put A1_MB between reuses; each eager (`cycle_ms`, the host's launch
+    cost included) and in a CUDA graph (`cold_cycle_ms`), and the host's
+    time a call (`host_ms`). Returns {(A, G): dict(k4=ms, k4_graph=ms,
+    k4_host=ms, k10=ms, k10_graph=ms, k10_host=ms, bound=(ms, by), sets=n)}."""
+    from whisper_at_tpu_torch.ops import cross_decode as cd
+    from whisper_at_tpu_torch.ops import cross_decode_stream as cs
+
+    k4 = cd.cross_attention_int4 if bits == 4 else cd.cross_attention_int8
+    k10 = cs.cross_attention_stream4 if bits == 4 else cs.cross_attention_stream
+    row = tuple(t[:1].contiguous() for t in kv)
+    sets_of = {BATCH: cold_sets(kv),
+               1: cold_sets(row, max(COLD_SETS, int(-(-A1_MB // set_mb(row))) + 1))}
+    points = {}
+    for a, groups in K4_POINTS:
+        sets = sets_of[a]
+        qd = randn(a, H * groups, DH, scale=DH ** -0.5)
+        iters = max(48, 2 * len(sets))
+        f4 = lambda *s: k4(qd, *s, bias, H)  # noqa: E731
+        f10 = lambda *s: k10(qd, *s, bias, H)  # noqa: E731
+        points[(a, groups)] = dict(
+            k4=cycle_ms(f4, sets, iters), k4_graph=cold_cycle_ms(f4, sets),
+            k4_host=host_ms(f4, sets, iters), k10=cycle_ms(f10, sets, iters),
+            k10_graph=cold_cycle_ms(f10, sets), k10_host=host_ms(f10, sets, iters),
+            bound=k4_bound(a, groups, bits), sets=len(sets))
+    return points
 
 
 def bound(flops: float, nbytes: float, peak_flops: float):
@@ -702,29 +781,7 @@ def kernel_checks(card: str):
     # ---- K4 decode-step cross-attention over K3's output ------------------ #
     kq, ks, vq, vs = kern
     bias = cross_decode.pad_bias(T_ENC, ta_pad, dev)
-    errs, tols = [], []
-    for groups in (4, BEAM, 1):  # the prefill bucket, a beam step, the greedy steps
-        qd = randn(BATCH, H * groups, DH, scale=DH ** -0.5)
-        e, tol = k4_compare(qd, kq, ks, vq, vs, bias, H)
-        errs.append(e)
-        tols.append(f"G={groups}: err {e:.3e} <= {tol}")
-    # timed at G=1, the per-token step, cold: COLD_SETS copies of the K/V in
-    # turn (`cycle_ms`); the bound reads the Ta valid positions of K/V and
-    # their scales (the masked pad columns need not be read)
-    sets = cold_sets((kq, ks, vq, vs))
-    rows["K4"] = dict(
-        module=cross_decode, err=max(errs),
-        tol="; ".join(tols) + "; " + cold_note(
-            sets, time_ms(lambda: cross_decode.cross_attention_int8(qd, kq, ks, vq, vs, bias, H),
-                          50)),
-        ms=cycle_ms(lambda *kv: cross_decode.cross_attention_int8(qd, *kv, bias, H), sets, 48),
-        plain_ms=time_ms(lambda: cross_decode.cross_attention_int8_plain(
-            qd, kq, ks, vq, vs, bias, H), 5, 1),
-        library_ms=None,
-        bound=bound(4.0 * BATCH * H * T_ENC * DH,
-                    2 * BATCH * T_ENC * D + 2 * 4.0 * BATCH * H * T_ENC
-                    + 4.0 * T_ENC + 2.0 * BATCH * H * DH + 4.0 * BATCH * H * DH,
-                    PEAK_FP32_FLOPS))
+    rows["K4"], points = k4_row(card, randn, kern, bias, 8)
 
     # ---- K9 split-S flash decode on K3's output, one query row per head --- #
     q9 = randn(BATCH * H, DH)
@@ -742,8 +799,8 @@ def kernel_checks(card: str):
     k9_launches = flash_decode.KERNEL.launches - before
 
     # ---- K10 streamed cross decode on the same inputs: G = 5 and G = 1 ----- #
-    rows["K10"] = k10_row(randn, sets, bias, 8, rows["K4"])
-    del kern, kq, ks, vq, vs, sets
+    rows["K10"] = k10_row(randn, kern, bias, 8, rows["K4"], points)
+    del kern, kq, ks, vq, vs
 
     # ---- K3-int4: the same projection, packed int4 codes [24, 1536, 640] --- #
     err, tol, kern = k3_compare(xa, wk, wv, bv, bits=4)
@@ -758,30 +815,10 @@ def kernel_checks(card: str):
                     + 2 * (BATCH * ta_pad * D / 2 + 4.0 * BATCH * H * ta_pad),
                     PEAK_BF16_FLOPS))
 
-    # ---- K4-int4 over K3-int4's output: G = 1 and a beam step, G = 5 ------- #
-    kp, ks, vp, vs = kern
-    errs, tols = [], []
-    for groups in (BEAM, 1):
-        qd = randn(BATCH, H * groups, DH, scale=DH ** -0.5)
-        e, tol = k4_compare(qd, kp, ks, vp, vs, bias, H, bits=4)
-        errs.append(e)
-        tols.append(f"G={groups}: err {e:.3e} <= {tol}")
-    sets = cold_sets((kp, ks, vp, vs))
-    rows["K4-int4"] = dict(
-        module=cross_decode, kernel=cross_decode.KERNEL4, err=max(errs),
-        tol="; ".join(tols) + "; " + cold_note(
-            sets, time_ms(lambda: cross_decode.cross_attention_int4(qd, kp, ks, vp, vs, bias, H),
-                          50)),
-        ms=cycle_ms(lambda *kv: cross_decode.cross_attention_int4(qd, *kv, bias, H), sets, 48),
-        plain_ms=time_ms(lambda: cross_decode.cross_attention_int4_plain(
-            qd, kp, ks, vp, vs, bias, H), 5, 1),
-        library_ms=None,
-        bound=bound(4.0 * BATCH * H * T_ENC * DH,
-                    2 * BATCH * T_ENC * D / 2 + 2 * 4.0 * BATCH * H * T_ENC
-                    + 4.0 * T_ENC + 2.0 * BATCH * H * DH + 4.0 * BATCH * H * DH,
-                    PEAK_FP32_FLOPS))
-    rows["K10-int4"] = k10_row(randn, sets, bias, 4, rows["K4-int4"])
-    del kern, kp, ks, vp, vs, xa, sets
+    # ---- K4-int4 over K3-int4's output ----------------------------------- #
+    rows["K4-int4"], points = k4_row(card, randn, kern, bias, 4)
+    rows["K10-int4"] = k10_row(randn, kern, bias, 4, rows["K4-int4"], points)
+    del kern, xa
 
     # ---- K5 int4-weight matmul: the decode loop's four weight shapes ------- #
     rows["K5"] = k5_rows(gen, dev)
@@ -809,20 +846,59 @@ def kernel_checks(card: str):
     return rows, k9_launches
 
 
-def cold_note(sets, hot_ms: float) -> str:
-    mb = set_mb(sets[0])
-    return (f"cold over {len(sets)} K/V sets of {mb:.1f} MB used in turn "
-            f"({(len(sets) - 1) * mb:.0f} MB between reuses); hot (one set) {hot_ms:.4f} ms")
+def k4_row(card: str, randn, kv, bias, bits: int):
+    """K4 (or K4-int4) on K3's output kv at batch 24 and on its first audio
+    row, held against the plain version at the prefill bucket (G = 4), a beam
+    step (G = 5) and the greedy step (G = 1), and timed cold at K4_POINTS
+    (`cross_decode_points`) beside K10 on the same bytes, the kernel before
+    its redesign as recorded (K4_BEFORE) and the split of the positions it
+    chose. The row's ms is the greedy step's at batch 24, eager over
+    COLD_SETS sets. Returns the row and the points."""
+    from whisper_at_tpu_torch.ops import cross_decode as cd
+
+    name = "K4-int4" if bits == 4 else "K4"
+    kernel, plain = ((cd.cross_attention_int4, cd.cross_attention_int4_plain) if bits == 4
+                     else (cd.cross_attention_int8, cd.cross_attention_int8_plain))
+    row = tuple(t[:1].contiguous() for t in kv)
+    errs, tols = [], []
+    for a, groups, args in [(BATCH, 4, kv), (BATCH, BEAM, kv), (1, BEAM, row), (1, 1, row),
+                            (BATCH, 1, kv)]:
+        qd = randn(a, H * groups, DH, scale=DH ** -0.5)
+        e, tol = k4_compare(qd, *args, bias, H, bits)
+        errs.append(e)
+        tols.append(f"A={a} G={groups}: err {e:.3e} <= {tol}")
+    points = cross_decode_points(randn, kv, bias, bits)
+    ta_pad = kv[0].shape[1]
+    slots = cd.wave_slots(kv[0].device.index)
+    for (a, groups), p in points.items():
+        n_split, per, tensor_cores, chunk = cd.plan(a, H, groups, ta_pad, bits, slots)
+        print(f"{name} A={a} G={groups} cold: {p['k4']:.4f} ms eager over {p['sets']} K/V sets "
+              f"used in turn, {p['k4_graph']:.4f} ms in a CUDA graph, host {p['k4_host']:.4f} "
+              f"ms a call; K10 on the same bytes {p['k10']:.4f} ms eager "
+              f"({p['k4'] / p['k10']:.3f}x), {p['k10_graph']:.4f} ms in a graph "
+              f"({p['k4_graph'] / p['k10_graph']:.3f}x), host {p['k10_host']:.4f} ms; "
+              f"{100 * p['bound'][0] / p['k4']:.1f}% of "
+              f"the {p['bound'][0]:.4f} ms bound; before its redesign "
+              f"{K4_BEFORE[bits][(a, groups)]:.4f} ms eager (recorded: git 5094ee7, NVIDIA H100 "
+              f"80GB HBM3 at 700 W; not this run); {'tensor' if tensor_cores else 'CUDA'} cores, "
+              f"stages of {chunk}, {n_split} run(s) of {per} stage(s)"
+              f"{f' (a cluster of {n_split})' if n_split > 1 else ''} [{card}]", flush=True)
+    greedy = points[(BATCH, 1)]
+    tols.append(f"cold, eager over {greedy['sets']} K/V sets (cycle_ms); in a CUDA graph "
+                f"{greedy['k4_graph']:.4f} ms")
+    return dict(module=cd, kernel=cd.KERNEL4 if bits == 4 else cd.KERNEL, err=max(errs),
+                tol="; ".join(tols), ms=greedy["k4"],
+                plain_ms=time_ms(lambda: plain(qd, *kv, bias, H), 5, 1), library_ms=None,
+                bound=greedy["bound"]), points
 
 
-def k10_row(randn, sets, bias, bits: int, k4_row: dict) -> dict:
-    """K10 (or K10-int4) on K3's output (`sets[0]`) at a beam step (G = 5)
-    and the greedy step (G = 1), timed cold at G = 1 over the same K/V sets
-    as K4 (`cycle_ms`) beside it; the bound is K4's (the same function over
-    the same bytes)."""
+def k10_row(randn, kv, bias, bits: int, k4_row: dict, points: dict) -> dict:
+    """K10 (or K10-int4) on K3's output kv at a beam step (G = 5) and the
+    greedy step (G = 1). Its ms is the greedy step's cold time, eager over
+    COLD_SETS sets, from K4's points (`cross_decode_points`, the same bytes);
+    the bound is K4's."""
     from whisper_at_tpu_torch.ops import cross_decode_stream as cs
 
-    kq, ks, vq, vs = sets[0]
     stream, plain, kernel = ((cs.cross_attention_stream4, cs.cross_attention_stream4_plain,
                               cs.KERNEL4) if bits == 4 else
                              (cs.cross_attention_stream, cs.cross_attention_stream_plain,
@@ -830,16 +906,17 @@ def k10_row(randn, sets, bias, bits: int, k4_row: dict) -> dict:
     errs, tols = [], []
     for groups in (BEAM, 1):
         qd = randn(BATCH, H * groups, DH, scale=DH ** -0.5)
-        e, tol = k10_compare(qd, kq, ks, vq, vs, bias, H, bits)
+        e, tol = k10_compare(qd, *kv, bias, H, bits)
         errs.append(e)
         tols.append(f"G={groups}: err {e:.3e} <= {tol}")
-    ms = cycle_ms(lambda *kv: stream(qd, *kv, bias, H), sets, 48)
+    ms = points[(BATCH, 1)]["k10"]
     k4 = f"K4{'-int4' if bits == 4 else ''}"
     tols.append(f"{k4} {k4_row['ms']:.4f} ms at G=1 cold, this kernel {ms / k4_row['ms']:.3f}x "
-                f"it; " + cold_note(sets, time_ms(lambda: stream(qd, kq, ks, vq, vs, bias, H),
-                                                  50)))
+                f"it; eager over {points[(BATCH, 1)]['sets']} K/V sets (cycle_ms), in a CUDA "
+                f"graph {points[(BATCH, 1)]['k10_graph']:.4f} ms; at G={BEAM} "
+                f"{points[(BATCH, BEAM)]['k10']:.4f} ms, at A=1 {points[(1, 1)]['k10']:.4f} ms")
     return dict(module=cs, kernel=kernel, err=max(errs), tol="; ".join(tols), ms=ms,
-                plain_ms=time_ms(lambda: plain(qd, kq, ks, vq, vs, bias, H), 5, 1),
+                plain_ms=time_ms(lambda: plain(qd, *kv, bias, H), 5, 1),
                 library_ms=None, bound=k4_row["bound"])
 
 

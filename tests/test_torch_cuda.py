@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions, on the card
 (K1-K10, the int4 entries of K3, K4 and K10, the int8 entry of K8, the
-streaming probes P1 and P2).
+streaming probes P1 and P2; K4 on both of its paths, tensor cores and CUDA
+cores, and with its positions split over clusters).
 
 Every test here needs an NVIDIA GPU and the CUDA toolkit (nvcc); without a
 card they skip. Run them on the card with `pytest -m cuda
@@ -418,6 +419,87 @@ def test_cross_decode_stream_kernels_keep_rows_apart(dev, bits):
     torch.cuda.synchronize()
     keep = [h for h in range(20) if h != 3]
     assert torch.equal(out[0, keep], clean[0, keep])
+
+
+def _cross_decode_pair(bits):
+    from whisper_at_tpu_torch.ops import cross_decode as cd
+
+    return ((cd.cross_attention_int4, cd.cross_attention_int4_plain) if bits == 4
+            else (cd.cross_attention_int8, cd.cross_attention_int8_plain))
+
+
+# G: the greedy step (CUDA cores), the prefill bucket and a beam step
+# (tensor cores; int4 in stages of 256 positions), G = 8 (stages of 128)
+# and G = 12 (two row slices of 16)
+_K4_ROWS = [1, 4, 5, 8, 12]
+
+
+@pytest.mark.parametrize("groups", _K4_ROWS)
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("a", [1, 24])
+@pytest.mark.parametrize("ta", [1, 63, 64, 65, 127, 128, 129, 300, 1500])
+def test_cross_decode_kernels_at_edges(dev, groups, bits, a, ta):
+    """K4 and K4-int4 at large-v1's 20 heads, one audio row (the positions
+    split over a cluster) and 24 (one run), at _K4_ROWS, Ta on both sides of
+    the 64- and 128-position boundaries, against the unchanged plain
+    version."""
+    from whisper_at_tpu_torch.ops.kv_quant import pad_ta
+
+    gen = torch.Generator(device=dev).manual_seed(ta * 100 + groups + a)
+    args = _stream_inputs(gen, a, 20, ta, pad_ta(ta), groups, bits)
+    kernel, plain = _cross_decode_pair(bits)
+    _close(kernel(*args, 20), plain(*args, 20), rel=1e-3)
+
+
+@pytest.mark.parametrize("groups", [1, 5, 8, 12])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("ta", [1500, 1000, 700])
+def test_cross_decode_kernels_in_forced_clusters(dev, monkeypatch, groups, bits, ta):
+    """At batch 24 the wrapper takes one run; with the wave's slots unbounded
+    it splits the positions over clusters of up to 8 blocks (stages of 128:
+    1536 positions in 6 runs of 2, 1024 in 8 of 1, 768 in 6 of 1; of 256:
+    6, 4 and 3 runs of 1), for every kernel the wrapper chooses."""
+    from whisper_at_tpu_torch.ops import cross_decode as cd
+    from whisper_at_tpu_torch.ops.kv_quant import pad_ta
+
+    monkeypatch.setattr(cd, "wave_slots", lambda index: 10 ** 9)
+    assert cd.plan(24, 20, groups, pad_ta(ta), bits, 10 ** 9)[0] > 1
+    gen = torch.Generator(device=dev).manual_seed(ta + groups)
+    args = _stream_inputs(gen, 24, 20, ta, pad_ta(ta), groups, bits)
+    kernel, plain = _cross_decode_pair(bits)
+    _close(kernel(*args, 20), plain(*args, 20), rel=1e-3)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("a, ta_pad", [(2, 132), (1, 68), (3, 4)])
+def test_cross_decode_kernels_take_part_of_a_stage(dev, bits, a, ta_pad):
+    """Ta_pad a multiple of 4 but not of the 128-position stage: the copy
+    engine's rows past it weigh nothing."""
+    gen = torch.Generator(device=dev).manual_seed(ta_pad + a)
+    args = _stream_inputs(gen, a, 4, max(1, ta_pad - 3), ta_pad, 3, bits)
+    kernel, plain = _cross_decode_pair(bits)
+    _close(kernel(*args, 4), plain(*args, 4), rel=1e-3)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("a, groups", [(2, 1), (2, 5), (24, 1), (24, 5)])
+def test_cross_decode_kernels_keep_rows_apart(dev, bits, a, groups):
+    """An inf scale in another head, and every scale of another audio row
+    inf, reach no output but their own, within a cluster (A = 2) and
+    without (A = 24)."""
+    gen = torch.Generator(device=dev).manual_seed(13 + a + groups)
+    q, kq, ks, vq, vs, bias = _stream_inputs(gen, a, 20, 1500, 1536, groups, bits)
+    kernel = _cross_decode_pair(bits)[0]
+    clean = kernel(q, kq, ks, vq, vs, bias, 20)
+    ks, vs = ks.clone(), vs.clone()
+    ks[1], vs[1] = float("inf"), float("inf")
+    ks[0, 3, 700], vs[0, 3, 5] = float("inf"), float("inf")
+    out = kernel(q, kq, ks, vq, vs, bias, 20).view(a, 20, groups, 64)
+    torch.cuda.synchronize()
+    keep = [h for h in range(20) if h != 3]
+    assert torch.equal(out[0, keep], clean.view(a, 20, groups, 64)[0, keep])
+    if a > 2:
+        assert torch.equal(out[2:], clean.view(a, 20, groups, 64)[2:])
 
 
 @pytest.mark.parametrize("variant", ["a", "b"])

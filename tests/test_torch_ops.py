@@ -156,6 +156,38 @@ def test_log_mel_tone_matches_jax():
     np.testing.assert_allclose(out, ref, atol=2e-4, rtol=0)
 
 
+@pytest.mark.parametrize("a, h, g, ta_pad, bits, split", [
+    (24, 20, 1, 1536, 8, (1, 6, 256)),   # large-v1 at batch 24: 480 blocks fill a wave
+    (24, 20, 5, 1536, 8, (1, 12, 128)),  # a beam step: every row in one block
+    (24, 20, 5, 1536, 4, (1, 6, 256)),
+    (24, 20, 1, 1536, 4, (1, 6, 256)),
+    (1, 20, 1, 1536, 8, (6, 1, 256)),    # one audio row: 120 blocks in clusters of 6
+    (1, 20, 5, 1536, 8, (6, 2, 128)),
+    (6, 20, 1, 1536, 8, (3, 2, 256)),
+    (12, 20, 4, 1536, 8, (2, 6, 128)),
+    (1, 6, 20, 1536, 8, (6, 2, 128)),    # two row slices of 16
+    (3, 4, 1, 64, 8, (1, 1, 256)),       # one stage, most of it past Ta_pad
+    (2, 4, 12, 300, 4, (3, 1, 128)),
+])
+def test_cross_decode_plan_fills_one_wave(a, h, g, ta_pad, bits, split):
+    """K4's positions split into runs of ring stages, the blocks of one
+    cluster: as many as one wave of blocks allows, at most 8, none empty;
+    the tensor cores above one query row, stages of 256 positions up to
+    WIDE_STAGES_TO's G; an H100's wave of 528 blocks."""
+    from whisper_at_tpu_torch.ops import cross_decode as cd
+
+    slots = 4 * 132
+    n_split, per, tensor_cores, chunk = cd.plan(a, h, g, ta_pad, bits, slots)
+    assert (n_split, per, chunk) == split
+    assert tensor_cores == (g > 1)
+    assert chunk == (256 if g <= cd.WIDE_STAGES_TO[bits] else 128)
+    n_stages = -(-ta_pad // chunk)
+    assert 1 <= n_split <= cd.MAX_SPLIT
+    assert (n_split - 1) * per < n_stages <= n_split * per
+    blocks = a * h * -(-g // cd.block_rows(g))
+    assert blocks * n_split <= max(blocks, slots)
+
+
 def test_kernels_registered_with_sources():
     """Every kernel names an existing CUDA source and the TPU kernel it
     replaces (the JAX package's ops, or the JAX streaming probe for P1 and

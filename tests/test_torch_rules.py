@@ -79,11 +79,11 @@ class _OnCard(torch.Tensor):
 
 def _wrapper_cases():
     """(ops module, kernel, plain function name, wrapper, argument maker) of
-    each entry of K7-K10, P1 and P2; the arguments are small and well
+    each entry of K4 and K7-K10, P1 and P2; the arguments are small and well
     formed."""
     from whisper_at_tpu_torch.models.layers import QuantLinear
     from whisper_at_tpu_torch.ops import (
-        cross_decode_stream, enc_flash, flash_decode, fused_mlp, probe_dma)
+        cross_decode, cross_decode_stream, enc_flash, flash_decode, fused_mlp, probe_dma)
 
     bf, i8, f32 = torch.bfloat16, torch.int8, torch.float32
     gen = torch.Generator().manual_seed(0)
@@ -107,6 +107,10 @@ def _wrapper_cases():
                            on(rand((1, 2, 128), f32)), on(torch.zeros(128)), 2)
 
     return {
+        "cross_decode": (cross_decode, cross_decode.KERNEL, "cross_attention_int8_plain",
+                         cross_decode.cross_attention_int8, cross(128)),
+        "cross_decode4": (cross_decode, cross_decode.KERNEL4, "cross_attention_int4_plain",
+                          cross_decode.cross_attention_int4, cross(64)),
         "enc_flash": (enc_flash, enc_flash.KERNEL, "enc_flash_plain", enc_flash.enc_flash,
                       lambda on: (*(on(rand((1, 64, 128), bf)) for _ in range(3)), 2)),
         "fused_mlp": (fused_mlp, fused_mlp.KERNEL, "fused_mlp_plain", fused_mlp.fused_mlp,
@@ -137,7 +141,8 @@ def _wrapper_cases():
     }
 
 
-@pytest.mark.parametrize("name", ["enc_flash", "fused_mlp", "fused_mlp_int8", "flash_decode",
+@pytest.mark.parametrize("name", ["cross_decode", "cross_decode4", "enc_flash", "fused_mlp",
+                                  "fused_mlp_int8", "flash_decode",
                                   "cross_decode_stream", "cross_decode_stream4", "probe_auto",
                                   "probe_ring_cp", "probe_ring_tma"])
 def test_wrappers_take_the_plain_version_only_on_cpu_tensors(monkeypatch, name):
@@ -149,6 +154,8 @@ def test_wrappers_take_the_plain_version_only_on_cpu_tensors(monkeypatch, name):
     monkeypatch.setattr(kernel, "launch", lambda *a: launched.append(a))
     monkeypatch.setattr(kernel, "c_function", lambda *a: lambda *b: 1)
     monkeypatch.setattr(module, "stream_handle", lambda device: None)
+    if hasattr(module, "wave_slots"):  # K4 reads the card's SM count
+        monkeypatch.setattr(module, "wave_slots", lambda index: 528)
     wrapper(*make_args(lambda t: t))
     assert not launched
 
@@ -184,6 +191,38 @@ def test_w4_matmul_wrapper_refuses_shapes_outside_its_contract(monkeypatch, m, k
     assert not launched
     w4_matmul.w4_matmul(on_card(torch.zeros((24, 1280), dtype=torch.bfloat16)),
                         on_card(torch.zeros((128, 640), dtype=torch.int8)))
+    assert len(launched) == 1
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_cross_decode_wrapper_refuses_inputs_outside_its_contract(monkeypatch, bits):
+    """K4's wrapper, given tensors on the card, raises for Ta_pad not a
+    multiple of 4 (the copy engine moves the scales in 16-byte units) and
+    for a bias of another length, before any launch."""
+    from whisper_at_tpu_torch.ops import cross_decode as cd
+
+    kernel, wrapper = ((cd.KERNEL4, cd.cross_attention_int4) if bits == 4
+                       else (cd.KERNEL, cd.cross_attention_int8))
+    launched = []
+    monkeypatch.setattr(kernel, "launch", lambda *a: launched.append(a))
+    monkeypatch.setattr(kernel, "c_function", lambda *a: lambda *b: 1)
+    monkeypatch.setattr(cd, "stream_handle", lambda device: None)
+    monkeypatch.setattr(cd, "wave_slots", lambda index: 528)
+
+    def args(ta_pad, bias_len):
+        width = 2 * 64 * bits // 8
+        on = lambda t: torch.Tensor._make_subclass(_OnCard, t)  # noqa: E731
+        return (on(torch.zeros((1, 2, 64), dtype=torch.bfloat16)),
+                on(torch.zeros((1, ta_pad, width), dtype=torch.int8)),
+                on(torch.ones((1, 2, ta_pad))),
+                on(torch.zeros((1, ta_pad, width), dtype=torch.int8)),
+                on(torch.ones((1, 2, ta_pad))), on(torch.zeros(bias_len)), 2)
+
+    for ta_pad, bias_len in ((126, 126), (1, 1), (128, 64)):
+        with pytest.raises(ValueError):
+            wrapper(*args(ta_pad, bias_len))
+    assert not launched
+    wrapper(*args(132, 132))
     assert len(launched) == 1
 
 

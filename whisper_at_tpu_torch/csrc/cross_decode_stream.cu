@@ -43,6 +43,7 @@
 //    a second kernel in the same entry combines the splits in order.
 // Positions at or past Ta_pad (the tail of the last stage when Ta_pad is
 // not a multiple of 128) have weight 0.
+#include "codes.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -77,32 +78,6 @@ struct Smem {
   static constexpr int BAR = COMB + NW * GM * PART * 4;   // full[NST], empty[NST]
   static constexpr int BYTES = 1024 + BAR + 2 * NST * 8;  // 1024 of slack to align the ring
 };
-
-// byte `sel` of w, a code biased to 0..255 (int8: c ^ 0x80; int4: its
-// nibble ^ 8) -> the float with bits 0x4B0000 | byte, 2^23 + byte
-__device__ __forceinline__ float biased(uint32_t w, uint32_t sel) {
-  return __uint_as_float(__byte_perm(w, 0x4B000000u, sel));
-}
-
-// 4 int8 codes of a word -> floats (exact)
-__device__ __forceinline__ void widen8(uint32_t w, float* f) {
-  const uint32_t u = w ^ 0x80808080u;
-  f[0] = biased(u, 0x7650) - 8388736.f;
-  f[1] = biased(u, 0x7651) - 8388736.f;
-  f[2] = biased(u, 0x7652) - 8388736.f;
-  f[3] = biased(u, 0x7653) - 8388736.f;
-}
-
-// 8 int4 codes of a word in pack4 order (byte j: code 2j low, 2j+1 high)
-__device__ __forceinline__ void widen4(uint32_t w, float* f) {
-  const uint32_t u = w ^ 0x88888888u;
-  const uint32_t lo = u & 0x0F0F0F0Fu, hi = (u >> 4) & 0x0F0F0F0Fu;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    f[2 * j] = biased(lo, 0x7650 + j) - 8388616.f;
-    f[2 * j + 1] = biased(hi, 0x7650 + j) - 8388616.f;
-  }
-}
 
 template <int BITS, int GM>
 __global__ void __launch_bounds__(THREADS, 4)

@@ -1,7 +1,8 @@
 // Hopper's copy engine for the kernels of this package: mbarriers, TMA box
 // copies through tensor maps, 1-D bulk copies, and the host's encoding of
-// a tensor map. Used by attn_sm90.cuh (K1, K7) and cross_decode_stream.cu
-// (K10).
+// a tensor map, and the cluster's barrier and distributed shared memory.
+// Used by attn_sm90.cuh (K1, K7), cross_decode_stream.cu (K10) and
+// cross_decode.cu (K4).
 //
 // Shared memory is addressed by 32-bit shared-window addresses (smem_u32).
 // The tensor maps are encoded on the host per call, by the driver's
@@ -73,6 +74,59 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 __device__ __forceinline__ void warp_wait(uint32_t bar, uint32_t parity) {
   mbar_wait(bar, parity);
   __syncwarp();
+}
+
+// mbar_wait for a phase completed by other blocks of the cluster (st_async),
+// acquiring at cluster scope what they wrote; the same trap
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  const uint32_t start = static_cast<uint32_t>(clock());
+  uint32_t done = 0;
+  while (!done) {
+    if (static_cast<uint32_t>(clock()) - start > (1u << 31)) __trap();
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// ---- device: thread block clusters ------------------------------------------ //
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// the cluster barrier in two halves: arrive (releasing this thread's writes,
+// barrier initialisations included), then wait for every thread of the
+// cluster that has not exited to have arrived
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// the address in block `rank`'s shared memory of a shared address of this block
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// 4 bytes into another block's shared memory at `remote`, completing on its
+// barrier `remote_bar` (both addresses from map_rank)
+__device__ __forceinline__ void st_async(uint32_t remote, float v, uint32_t remote_bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n" ::"r"(remote),
+      "r"(__float_as_uint(v)), "r"(remote_bar)
+      : "memory");
 }
 
 // the box of `map` at coordinates {c0, c1, c2} into shared memory at dst;
