@@ -9,8 +9,11 @@ It (1) builds every hand-written CUDA kernel of the port from
 each kernel against its plain PyTorch version at the shapes its path gives
 it (the headline workload: large-v1, batch 24, bf16; K5 at the decode
 loop's four weight shapes with 24 and 96 rows; the DTW at the word timing's
-matrix sizes) and times both. The decode loop's own operands are timed
-cold, as the loop meets them after the other layers': K5 and its
+matrix sizes) and times both; K2 also beside the unfused chain it
+replaces, at the headline's rows and at one audio row (`k2_points`), with
+the kernel before its redesign as recorded (K2_BEFORE). The decode
+loop's own operands are timed cold, as the loop meets them after the
+other layers': K5 and its
 torch.matmul yardstick as a CUDA graph of one greedy step's 192 products
 over 32 layers' weights with the L2 flushed before each replay (K5 also
 hot, labelled); K4, K10 and their int4 entries over K/V sets used in
@@ -121,6 +124,10 @@ PROBE_MB = 512
 PROBE_CHUNK_KB = 1024
 PROBE_ITERS = 5
 PROBE_ROWS = {"P1": "auto", "P2-cp": "cp-4", "P2-tma": "tma-4"}
+# K2 before its redesign on gemm_sm90.cuh, as recorded (not this run)
+K2_BEFORE = ("4.1369-4.1376 ms at [24, 1500, 1280], 0.2445-0.2502 ms at [1, 1500, 1280] "
+             "(recorded: k2_points over a git archive of 4d99e7e, NVIDIA H100 80GB HBM3, "
+             "700.00 W)")
 
 
 def card_line() -> str:
@@ -442,6 +449,59 @@ def k2_compare(*args):
     return err, f"{tol:.3e}"
 
 
+def k2_bound(m: int):
+    """K2's bound at m rows of D: 4 m D 4D operations; x, the weights, LN
+    and bias vectors and out, each read or written once."""
+    f = 4 * D
+    return bound(4.0 * m * D * f, 2.0 * (2 * m * D + 2 * D * f) + 4.0 * (3 * D + f),
+                 PEAK_BF16_FLOPS)
+
+
+def k2_chain(x, ln_w, ln_b, w1, b1, w2, b2):
+    """The unfused chain K2 replaces, `models/encoder.py`'s mlp_impl "xla":
+    x + fc2(gelu(fc1(mlp_ln(x)))) through layers.linear (cuBLAS products,
+    the bias added to the bf16 product) and elementwise passes."""
+    from whisper_at_tpu_torch.models.layers import gelu, layer_norm, linear
+
+    return x + linear(gelu(linear(layer_norm(x, ln_w, ln_b), w1, b1)), w2, b2)
+
+
+def k2_points(card: str, args=None) -> None:
+    """K2 beside the unfused chain it replaces (`k2_chain`), each by
+    `time_ms` over 10 calls on the same inputs, at the headline's rows
+    [24, 1500, 1280] and at one audio row [1, 1500, 1280] (the sequential
+    and words calls' shape; x's first row, the same weights); `args` are
+    K2's headline inputs, made here from SEED when None (to time another
+    checkout's K2, import this with that checkout's package first on
+    sys.path). Prints one line."""
+    from whisper_at_tpu_torch.ops import enc_mlp
+
+    if args is None:
+        dev = torch.device("cuda")
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        f = 4 * D
+
+        def uniform(*shape, scale):
+            return ((torch.rand(shape, generator=gen, device=dev) * 2 - 1) * scale).to(
+                torch.bfloat16)
+
+        args = (uniform(BATCH, T_ENC, D, scale=3 ** 0.5), 1 + uniform(D, scale=0.1),
+                uniform(D, scale=0.1), uniform(f, D, scale=D ** -0.5),
+                uniform(f, scale=D ** -0.5), uniform(D, f, scale=f ** -0.5),
+                uniform(D, scale=f ** -0.5))
+    parts = []
+    for a in (BATCH, 1):
+        inputs = (args[0][:a],) + tuple(args[1:])
+        ms = time_ms(lambda: enc_mlp.enc_mlp(*inputs), 10)
+        chain = time_ms(lambda: k2_chain(*inputs), 10)
+        b_ms = k2_bound(a * T_ENC)[0]
+        parts.append(f"[{a}, {T_ENC}, {D}] kernel {ms:.4f} ms, the unfused chain it replaces "
+                     f"{chain:.4f} ms ({ms / chain:.3f}x), {100 * b_ms / ms:.1f}% of the "
+                     f"{b_ms:.4f} ms bound")
+    print("K2: " + "; ".join(parts) + f"; before its redesign {K2_BEFORE} [{card}]", flush=True)
+
+
 def k3_compare(xa, wk, wv, bv, bits: int = 8):
     """K3 (or its int4 entry) against its plain version: codes within 1 LSB
     on <= 1e-3 of the entries, scales within 2^-7 relative; the error is
@@ -723,15 +783,14 @@ def kernel_checks(card: str):
     w2, b2 = uniform(D, f, bound_=f ** -0.5), uniform(D, bound_=f ** -0.5)
     args = (x, ln_w, ln_b, w1, b1, w2, b2)
     err, tol = k2_compare(*args)
-    m = BATCH * T_ENC
+    err_row, _ = k2_compare(x[:1], *args[1:])
     rows["K2"] = dict(
-        module=enc_mlp, err=err, tol=tol,
+        module=enc_mlp, err=max(err, err_row), tol=f"{tol}; [1, {T_ENC}, {D}] err {err_row:.3e}",
         ms=time_ms(lambda: enc_mlp.enc_mlp(*args), 10),
         plain_ms=time_ms(lambda: enc_mlp.enc_mlp_plain(*args), 3, 1),
         library_ms=None,
-        bound=bound(4.0 * m * D * f,
-                    2.0 * (2 * m * D + 2 * D * f) + 4.0 * (3 * D + f),
-                    PEAK_BF16_FLOPS))
+        bound=k2_bound(BATCH * T_ENC))
+    k2_points(card, args)
     del x, args, w1, w2
 
     # ---- K8 decode MLP: x [M, 1280], W1 [5120, 1280], W2 [1280, 5120] ----- #

@@ -96,14 +96,36 @@ def test_encoder_attention_kernels_keep_batch_rows_apart(dev, kernel):
     _within_k1_bound(out, enc_flash.enc_flash_plain(q[:1], k[:1], v[:1], h)[0])
 
 
-def test_enc_mlp_kernel(dev):
+def _enc_mlp_args(gen, b, t, d):
+    f = 4 * d
+    return (_randn(gen, b, t, d), 1 + _randn(gen, d, scale=0.1), _randn(gen, d, scale=0.1),
+            _randn(gen, f, d, scale=d ** -0.5), _randn(gen, f, scale=0.02),
+            _randn(gen, d, f, scale=f ** -0.5), _randn(gen, d, scale=0.02))
+
+
+@pytest.mark.parametrize("d", [256, 384, 512, 768, 1024, 1280])
+@pytest.mark.parametrize("b, t", [(2, 300), (1, 1), (1, 127), (1, 129), (1, 1500), (3, 1000),
+                                  (1, 3001)])
+def test_enc_mlp_kernel(dev, d, b, t):
+    """K2 at every Whisper width (and 256) with F = 4D: M = b * t below,
+    at and above one 128-row panel, ragged last panels, one audio row and
+    3000-3001 rows, so `plan` gives both block widths; a ragged last panel
+    is where a residual read at the wrong row would show."""
     from whisper_at_tpu_torch.ops.enc_mlp import enc_mlp, enc_mlp_plain
 
     gen = torch.Generator(device=dev).manual_seed(1)
-    d, f = 256, 1024
-    args = (_randn(gen, 2, 300, d), 1 + _randn(gen, d, scale=0.1), _randn(gen, d, scale=0.1),
-            _randn(gen, f, d, scale=d ** -0.5), _randn(gen, f, scale=0.02),
-            _randn(gen, d, f, scale=f ** -0.5), _randn(gen, d, scale=0.02))
+    args = _enc_mlp_args(gen, b, t, d)
+    _close(enc_mlp(*args), enc_mlp_plain(*args))
+
+
+def test_enc_mlp_kernel_at_the_headline_rows(dev):
+    """K2 at large-v1 batch 24 (M = 36000 = 281 x 128 + 32, D = 1280), where
+    both products take 256-wide blocks and every block runs ~11 tiles."""
+    from whisper_at_tpu_torch.ops.enc_mlp import enc_mlp, enc_mlp_plain, plan
+
+    assert plan(36000, 1280, 132)[0] == plan(36000, 5120, 132)[0] == 256
+    gen = torch.Generator(device=dev).manual_seed(2)
+    args = _enc_mlp_args(gen, 24, 1500, 1280)
     _close(enc_mlp(*args), enc_mlp_plain(*args))
 
 

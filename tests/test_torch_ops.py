@@ -6,6 +6,8 @@ tests do. Inputs come from numpy with a seed and go to both packages.
 All comparisons are fp32.
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,7 +20,7 @@ from whisper_at_tpu.ops.flash_enc import encoder_attention as jax_enc_attention
 from whisper_at_tpu.ops.kv_quant import project_quantize_kv as jax_project_quantize
 from whisper_at_tpu.ops.mlp_enc import mlp_block_fused as jax_mlp_block
 from whisper_at_tpu_torch.audio import log_mel_spectrogram
-from whisper_at_tpu_torch.ops import cuda
+from whisper_at_tpu_torch.ops import cuda, enc_mlp as enc_mlp_ops
 from whisper_at_tpu_torch.ops.cross_decode import cross_attention_int8, pad_bias
 from whisper_at_tpu_torch.ops.enc_attention import enc_attention
 from whisper_at_tpu_torch.ops.enc_mlp import enc_mlp
@@ -61,6 +63,26 @@ def test_enc_mlp_matches_jax_kernel():
     out = enc_mlp(_t(x), _t(ln_w), _t(ln_b), _t(w1.T.copy()), _t(b1), _t(w2.T.copy()),
                   _t(b2)).numpy()
     np.testing.assert_allclose(out, ref, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("m", [1, 127, 129, 1500, 3001, 36000])
+@pytest.mark.parametrize("d", [384, 512, 768, 1024, 1280])
+def test_enc_mlp_plan(d, m):
+    """K2's GEMM plan for fc1 (N = 4D) and fc2 (N = D) at every Whisper
+    width: a block width the C entry is built for that divides N; 256 only
+    where its tiles still give every one of 132 SMs a block, else 128; one
+    persistent block an SM, fewer only where there are fewer tiles."""
+    source = open(os.path.join(cuda.CSRC, "enc_mlp.cu")).read()
+    for n in (4 * d, d):
+        bn, blocks = enc_mlp_ops.plan(m, n, 132)
+        assert bn in enc_mlp_ops.WIDTHS and n % bn == 0
+        assert f"gemm_sm90::run<{bn}>" in source
+        panels = -(-m // enc_mlp_ops.BM)
+        assert blocks == min(132, panels * (n // bn))
+        wide_fills = n % 256 == 0 and panels * (n // 256) >= 132
+        assert bn == (256 if wide_fills else 128)
+    assert enc_mlp_ops.plan(36000, 5120, 132) == enc_mlp_ops.plan(36000, 1280, 132) == (256, 132)
+    assert enc_mlp_ops.plan(1500, 1280, 132) == (128, 120)
 
 
 def test_quantize_sym_bitwise():

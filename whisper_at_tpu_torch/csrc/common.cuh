@@ -3,8 +3,8 @@
 // Every kernel here is compiled for sm_90a by nvcc into its own shared
 // library with a plain C interface (see ops/cuda.py). The tensor-core
 // products here use the warp-level mma.sync m16n8k16 bf16 instruction with
-// fp32 accumulation (the encoder attention's wgmma products are in
-// attn_sm90.cuh); fragments are loaded from shared memory with plain 32-bit
+// fp32 accumulation (the wgmma products are in hopper.cuh, attn_sm90.cuh
+// and gemm_sm90.cuh); fragments are loaded from shared memory with plain 32-bit
 // loads, in the register layout the PTX ISA defines for that shape:
 //   A (16x16, row-major): reg0 = (row g,   cols 2t, 2t+1)
 //                         reg1 = (row g+8, cols 2t, 2t+1)

@@ -4,18 +4,30 @@
 // The TPU kernel keeps an fp32 [block_m, D] accumulator of the whole
 // output row in VMEM so that the [M, 4D] gelu intermediate never reaches
 // HBM. At D = 1280 that accumulator is 327 KB for 64 rows, more than a
-// block's 227 KB of shared memory and far more than its registers, so this
-// port takes design (a): three launches in one call,
-//   1. ln_rows:    xn = LN(x) in fp32, stored bf16 [M, D]          (one warp per row)
-//   2. gemm gelu:  h  = gelu(xn @ W1^T + b1), fp32 epilogue, bf16 [M, 4D]
-//   3. gemm resid: out = x + h @ W2^T + b2, fp32 epilogue, bf16 [M, D]
-// The bf16 intermediate (369 MB at large-v1 batch 24) goes through HBM.
-// What bounds it on the H100: 4*M*D*4D = 9.4e11 FLOP per call at large-v1
-// batch 24 against 989 TFLOP/s bf16 (0.95 ms), while the bytes (x, W1, W2,
-// out: ~0.2 GB; 1 GB with the intermediate) need 0.06-0.3 ms, so it is
-// compute-bound; the two GEMMs run on the tensor cores (gemm.cuh). GELU is
-// the exact erf form (CUDA's erff), not the TPU kernel's A&S approximation.
-#include "gemm.cuh"
+// block's 227 KB of shared memory and far more than its registers, so one
+// call here is three launches:
+//   1. ln_rows:  xn = LN(x) in fp32, stored bf16 [M, D]           (one warp a row)
+//   2. fc1:      h  = gelu(xn W1^T + b1), exact erf, bf16 [M, 4D]
+//   3. fc2:      out = x + (h W2^T + b2), bf16 [M, D]
+// The two products run on gemm_sm90.cuh: persistent blocks, a TMA ring of
+// four 64-deep stages, wgmma from shared memory in two consumer
+// warpgroups, the sums started from the bias (fc1) or the bias plus x
+// (fc2), GELU applied in registers, the tile stored by TMA. Each product's
+// block width (256 or 128 columns) is ops/enc_mlp.py's plan: 256 where
+// that still gives one tile a block on every SM, else 128.
+// What bounds it on the H100: 4*M*D*4D = 9.44e11 FLOP a call at large-v1
+// batch 24 (M = 36000, D = 1280), 0.954 ms at 989 TFLOP/s bf16, while its
+// bytes (x, W1, W2, out: ~0.2 GB, 0.06 ms; 0.94 GB with h through HBM,
+// 0.28 ms) stay far below: operations. h's round trip through HBM is
+// affordable because both products are compute-bound; the LN pass moves
+// 184 MB (~0.06 ms). GELU is the exact erf form (CUDA's erff), not the TPU
+// kernel's A&S approximation. Measured at that shape (NVIDIA H100 80GB
+// HBM3, 700 W; chip_smoke.py's k2_points, PERF.md): 1.59-1.61 ms,
+// 60% of the bound, 0.38x the mma.sync kernel it replaced. What it leaves
+// is each tile's epilogue, which the tensor cores wait out (erff over
+// fc1's 184 M values above all), and fc2's loads of x at each tile's
+// start.
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -57,76 +69,62 @@ __device__ __forceinline__ float gelu_erf(float v) {
   return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
 }
 
-// RESIDUAL == false: out = gelu(A @ B^T + bias)
-// RESIDUAL == true:  out = res + A @ B^T + bias
-template <bool RESIDUAL>
-__global__ void __launch_bounds__(gemm::THREADS)
-    gemm_epilogue(const bf16* __restrict__ A, const bf16* __restrict__ B,
-                  const float* __restrict__ bias, const bf16* __restrict__ res,
-                  bf16* __restrict__ out, int M, int N, int K) {
-  __shared__ __align__(16) bf16 smem[gemm::SMEM_BF16];
-  const int n0 = blockIdx.x * gemm::BN;
-  const int m0 = blockIdx.y * gemm::BM;
-  gemm::Frag f;
-  gemm::mainloop(
-      f,
-      [&](int r) -> const bf16* {
-        const int gr = m0 + r;
-        return gr < M ? A + (size_t)gr * K : nullptr;
-      },
-      B, K, n0, smem);
-
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, tg = lane & 3;
-  const int wr = gemm::warp_row0(), wc = gemm::warp_col0();
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int col = n0 + wc + ni * 8 + tg * 2;
-      const float b0 = bias[col], b1 = bias[col + 1];
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = m0 + wr + mi * 16 + g + half * 8;
-        if (row >= M) continue;
-        float v0 = f.acc[mi][ni][2 * half] + b0;
-        float v1 = f.acc[mi][ni][2 * half + 1] + b1;
-        const size_t off = (size_t)row * N + col;
-        if (RESIDUAL) {
-          const float2 r = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(res + off));
-          v0 += r.x;
-          v1 += r.y;
-        } else {
-          v0 = gelu_erf(v0);
-          v1 = gelu_erf(v1);
-        }
-        *reinterpret_cast<__nv_bfloat162*>(out + off) = __floats2bfloat162_rn(v0, v1);
-      }
-    }
+// fc1: gelu(b1 + sum)
+struct BiasGelu {
+  const float* bias;
+  __device__ __forceinline__ float2 init(int, int col) const {
+    return __ldg(reinterpret_cast<const float2*>(bias + col));
   }
+  __device__ __forceinline__ float operator()(float s) const { return gelu_erf(s); }
+};
+
+// fc2: (x + b2) + sum; rows past M (which the store clips) read no x
+struct BiasResidual {
+  const float* bias;
+  const bf16* res;
+  int M, ld;
+  __device__ __forceinline__ float2 init(int row, int col) const {
+    float2 v = __ldg(reinterpret_cast<const float2*>(bias + col));
+    if (row < M) {
+      const float2 x = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(res + (size_t)row * ld + col));
+      v.x += x.x;
+      v.y += x.y;
+    }
+    return v;
+  }
+  __device__ __forceinline__ float operator()(float s) const { return s; }
+};
+
+template <class Epi>
+int gemm(int bn, const void* a, const void* b, void* c, const Epi& epi, int M, int N, int K,
+         int blocks, cudaStream_t s) {
+  if (bn == 256) return gemm_sm90::run<256>(a, b, c, epi, M, N, K, blocks, s);
+  if (bn == 128) return gemm_sm90::run<128>(a, b, c, epi, M, N, K, blocks, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // x [M, D]; w1 [F, D]; w2 [D, F] (torch Linear layout); LN and biases fp32;
-// xn [M, D] and h [M, F] are caller-allocated scratch; out [M, D].
-// Requires D % 128 == 0, F % 128 == 0 (and both % 32 == 0 for the K loop).
+// xn [M, D] and h [M, F] are caller-allocated scratch; out [M, D]. D and F
+// are multiples of 128 and of the block widths bn1 (fc1, over F) and bn2
+// (fc2, over D); blocks1 and blocks2 are the products' persistent grids.
 extern "C" int enc_mlp_bf16(const void* x, const void* ln_w, const void* ln_b,
                             const void* w1, const void* b1, const void* w2,
                             const void* b2, void* xn, void* h, void* out, int M,
-                            int D, int F, void* stream) {
+                            int D, int F, int bn1, int blocks1, int bn2, int blocks2,
+                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   ln_rows<<<(M + 7) / 8, 256, 0, s>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(ln_w),
       static_cast<const float*>(ln_b), static_cast<bf16*>(xn), M, D);
-  const int mt = (M + gemm::BM - 1) / gemm::BM;
-  gemm_epilogue<false><<<dim3(F / gemm::BN, mt), gemm::THREADS, 0, s>>>(
-      static_cast<const bf16*>(xn), static_cast<const bf16*>(w1),
-      static_cast<const float*>(b1), nullptr, static_cast<bf16*>(h), M, F, D);
-  gemm_epilogue<true><<<dim3(D / gemm::BN, mt), gemm::THREADS, 0, s>>>(
-      static_cast<const bf16*>(h), static_cast<const bf16*>(w2),
-      static_cast<const float*>(b2), static_cast<const bf16*>(x),
-      static_cast<bf16*>(out), M, D, F);
-  return static_cast<int>(cudaGetLastError());
+  int rc = static_cast<int>(cudaGetLastError());
+  if (rc == 0)
+    rc = gemm(bn1, xn, w1, h, BiasGelu{static_cast<const float*>(b1)}, M, F, D, blocks1, s);
+  if (rc == 0)
+    rc = gemm(bn2, h, w2, out,
+              BiasResidual{static_cast<const float*>(b2), static_cast<const bf16*>(x), M, D},
+              M, D, F, blocks2, s);
+  return rc;
 }

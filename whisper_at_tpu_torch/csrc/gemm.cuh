@@ -1,5 +1,5 @@
-// Tiled bf16 tensor-core GEMM main loop shared by the encoder MLP (K2) and
-// the cross-KV projection (K3) kernels.
+// Tiled bf16 tensor-core GEMM main loop of the cross-KV projection (K3) on
+// mma.sync (K2's products run on gemm_sm90.cuh).
 //
 //   acc[BM x BN tile] = A[rows, K] @ B[n0 : n0 + BN, K]^T
 //

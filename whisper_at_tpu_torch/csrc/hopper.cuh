@@ -1,8 +1,10 @@
-// Hopper's copy engine for the kernels of this package: mbarriers, TMA box
-// copies through tensor maps, 1-D bulk copies, and the host's encoding of
-// a tensor map, and the cluster's barrier and distributed shared memory.
-// Used by attn_sm90.cuh (K1, K7), cross_decode_stream.cu (K10) and
-// cross_decode.cu (K4).
+// Hopper's copy engine and tensor cores for the kernels of this package:
+// mbarriers, TMA box loads and stores through tensor maps, 1-D bulk
+// copies, the host's encoding of a tensor map, the cluster's barrier and
+// distributed shared memory, and the wgmma descriptors, fences and the
+// m64n128k16 product with both operands in shared memory. Used by
+// attn_sm90.cuh (K1, K7), gemm_sm90.cuh (K2), cross_decode_stream.cu (K10)
+// and cross_decode.cu (K4).
 //
 // Shared memory is addressed by 32-bit shared-window addresses (smem_u32).
 // The tensor maps are encoded on the host per call, by the driver's
@@ -149,6 +151,124 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// ---- TMA stores and shared stores ------------------------------------------ //
+// shared memory at src into the box of `map` at {c0, c1, c2} (elements
+// outside the tensor are not written), committed as one bulk group of the
+// calling thread
+__device__ __forceinline__ void tma_store_async(const CUtensorMap* map, uint32_t src, int c0,
+                                                int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of the calling thread's bulk groups have yet to
+// finish reading shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// wait until every bulk group of the calling thread has completed
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// tma_store_async that returns once the copy has read shared memory
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                          int c2) {
+  tma_store_async(map, src, c0, c1, c2);
+  bulk_wait_read<0>();
+}
+
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t value) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(value) : "memory");
+}
+
+// orders this thread's shared-memory writes before later copies by the
+// async proxy (a TMA store of them, a wgmma reading them)
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// the named barrier `id` (1-15; 0 is __syncthreads) over `count` threads
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// ---- wgmma ---------------------------------------------------------------- //
+// Descriptor of a tile of 128-byte rows in 128-byte swizzle, 1024-byte
+// aligned at its 8-row groups: start address >> 4 (bits 0-13), leading
+// byte offset 16 (bits 16-29; no tile here spans two swizzle columns, so it
+// is not read), stride byte offset 1024 between 8-row groups (bits 32-45),
+// layout 128B swizzle (bits 62-63). The same fields serve K-major tiles
+// (8-row groups along M or N; a 16-wide k-step is +32 bytes: attention's Q
+// and K, the GEMM's A and B) and MN-major ones (8-row groups along K; a
+// 16-row k-step is +2048: attention's V).
+// Only the low word depends on the tile; the wgmma wrappers below take it
+// and add the constant high word, so a descriptor costs one register.
+constexpr uint64_t DESC_HI = (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+
+__device__ __forceinline__ uint32_t desc_lo(uint32_t tile) {
+  return ((tile & 0x3FFFF) >> 4) | (1u << 16);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// wait until at most N committed groups of this warpgroup are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving reads or writes of registers that an
+// asynchronous wgmma owns across the wait that returns them
+template <int N>
+__device__ __forceinline__ void hold(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]));
+}
+
+static_assert(DESC_HI == 0x4000004000000000ull, "the wgmma wrappers below inline DESC_HI");
+
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B K-major in shared memory
+// (descriptor low words a_lo, b_lo); D is overwritten when accumulate is 0
+__device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint32_t a_lo, uint32_t b_lo,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 da, db;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "cvt.u64.u32 da, %64; or.b64 da, da, 0x4000004000000000;\n"
+      "cvt.u64.u32 db, %65; or.b64 db, db, 0x4000004000000000;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "da, db, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a_lo), "r"(b_lo), "r"(accumulate));
 }
 
 // ---- host: tensor maps -------------------------------------------------------- //

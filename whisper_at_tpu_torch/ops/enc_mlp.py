@@ -1,12 +1,15 @@
 """K2: the encoder MLP half-block  x + fc2(gelu(fc1(LN(x)))).
 
 Replaces `whisper_at_tpu/ops/mlp_enc.py::mlp_block_fused` (Pallas). The CUDA
-source is `csrc/enc_mlp.cu`: one call launches an LN kernel and two tensor-
-core GEMMs with fused epilogues (bias + erf-GELU, then bias + residual); its
-header says why the TPU's single fused kernel was not carried over.
+source is `csrc/enc_mlp.cu`: one call launches an LN kernel and two GEMMs on
+`csrc/gemm_sm90.cuh` (persistent blocks, TMA, wgmma) with fused epilogues
+(bias + erf-GELU, then bias + residual); its header says why the TPU's
+single fused kernel was not carried over. `plan` picks each GEMM's block
+width and grid.
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -15,9 +18,29 @@ from .cuda import CudaKernel, ptr, require_cuda, stream_handle
 
 KERNEL = CudaKernel(
     "enc_mlp", "enc_mlp.cu", "enc_mlp_bf16",
-    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     replaces="whisper_at_tpu/ops/mlp_enc.py:93",
 )
+
+BM = 128             # rows of a GEMM block tile (csrc/gemm_sm90.cuh)
+WIDTHS = (256, 128)  # the block widths built, widest first
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def plan(m: int, n: int, sms: int):
+    """(block width, blocks) of the GEMM C[m, n] = A[m, k] B[n, k]^T on a
+    card with `sms` SMs: 256-wide tiles where n allows and they still give
+    every SM a tile, else 128 (n is a multiple of 128); one persistent block
+    an SM, fewer where there are fewer tiles. At large-v1 (fc1 n = 5120,
+    fc2 n = 1280) batch 24 takes 256 for both; one audio row (m = 1500)
+    takes 256 for fc1 (240 tiles) and 128 for fc2 (120 tiles, not 60)."""
+    panels = -(-m // BM)
+    bn = next((w for w in WIDTHS if n % w == 0 and panels * (n // w) >= sms), WIDTHS[-1])
+    return bn, min(sms, panels * (n // bn))
 
 
 def enc_mlp_plain(x, ln_w, ln_b, w1, b1, w2, b2) -> torch.Tensor:
@@ -52,10 +75,11 @@ def enc_mlp(x, ln_w, ln_b, w1, b1, w2, b2) -> torch.Tensor:
         if p.shape[0] != n:
             raise ValueError(f"{name} must have {n} entries")
     m = b * t
+    sms = sm_count(x.device.index or 0)
     xn = torch.empty_like(x2)
     h = torch.empty((m, f), device=x.device, dtype=torch.bfloat16)
     out = torch.empty_like(x2)
     KERNEL.launch(ptr(x2), ptr(vecs[0]), ptr(vecs[1]), ptr(w1), ptr(vecs[2]),
                   ptr(w2), ptr(vecs[3]), ptr(xn), ptr(h), ptr(out), m, d, f,
-                  stream_handle(x.device))
+                  *plan(m, f, sms), *plan(m, d, sms), stream_handle(x.device))
     return out.reshape(b, t, d)
