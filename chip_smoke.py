@@ -16,7 +16,10 @@ loop's own operands are timed cold, as the loop meets them after the
 other layers': K5 and its
 torch.matmul yardstick as a CUDA graph of one greedy step's 192 products
 over 32 layers' weights with the L2 flushed before each replay (K5 also
-hot, labelled); K4, K10 and their int4 entries over K/V sets used in
+hot, labelled); K8 and K8-int8 the same way, a CUDA graph of one call per
+layer over 32 layers' own weight pairs, at 24, 96 and 120 rows beside the
+unfused MLP they replace (`k8_points`, hot figures beside, labelled); K4,
+K10 and their int4 entries over K/V sets used in
 turn, eager and in CUDA graphs, at the greedy step and a beam step at
 batch 24 and at the sequential call's single audio row
 (`cross_decode_points`), each K4 point printed beside K10 on the same
@@ -44,7 +47,8 @@ before and read just after, and checks its output:
     equal to the plain version in its sums and XOR word, beside torch.sum.
 Each path's kernel inputs are also recorded (`Recorder`) and every kernel
 is held against its plain version on them: K1-K5, K7, K8, K10 and the int4
-entries at each shape the path gave them, K6 on every call. K9 has no path
+entries at each shape the path gave them (K8 also against a repeat of the
+same call, bit for bit), K6 on every call. K9 has no path
 (nothing in the JAX package calls it): it is held and timed on the
 headline's own cross-K/V at one query row per head.
 
@@ -111,7 +115,7 @@ DTW_WORST = 448
 # the switches calls: the JAX package's alternative kernels (K7, K8, K10)
 SWITCH_ENV = {"WHISPER_AT_TPU_ENC_ATTN": "flash", "WHISPER_AT_TPU_CROSS_DECODE": "stream"}
 SWITCHES_B_OPTS = dict(HEADLINE_OPTS, kv_bits=4, weight_quant=False)
-K8_ROWS = (BATCH, BATCH * BEAM)  # a greedy step, a beam-5 step
+K8_POINTS = (BATCH, BATCH * 4, BATCH * BEAM)  # a greedy step, the greedy prefill, a beam-5 step
 # cold timing: the decode loop reads each layer's weights and cross K/V after
 # the 31 other layers', so it finds them in HBM, not in the 50 MB L2
 L2_FLUSH_BYTES = 128 << 20  # written before each timed replay of a cold graph
@@ -585,12 +589,16 @@ def k8_compare(x, fc1, fc2):
     w1, s1, b1 = fused_mlp.linear_weights(fc1)
     w2, s2, b2 = fused_mlp.linear_weights(fc2)
     out = fused_mlp.fused_mlp(x, fc1, fc2)
+    again = fused_mlp.fused_mlp(x, fc1, fc2)
     ref = fused_mlp.fused_mlp_plain(x, w1, s1, b1, w2, s2, b2)
     torch.cuda.synchronize()
+    name = f"K8{'' if s1 is None else '-int8'} {tuple(x.shape)}"
+    if not torch.equal(out, again):
+        raise AssertionError(f"{name}: two calls on the same inputs differ")
     err = max_err(out, ref)
     tol = 1e-3 + 2 ** -7 * float(ref.float().abs().max())
-    check(f"K8{'' if s1 is None else '-int8'} {tuple(x.shape)}", err, tol)
-    return err, f"{tol:.3e}"
+    check(name, err, tol)
+    return err, f"{tol:.3e}, bitwise equal on a repeat"
 
 
 def k9_compare(q, kq, ks, vq, vs, n_head, s):
@@ -710,10 +718,131 @@ def k5_rows(gen, dev) -> dict:
                 bound=bound(total["ops"], total["bytes"], PEAK_BF16_FLOPS))
 
 
+def k8_bound(m: int, int8: bool):
+    """K8's bound at m rows of large-v1: the weight pair (int8: and its fp32
+    scales), the biases, x and out, each read or written once; 4 m D 4D
+    operations."""
+    f = 4 * D
+    wbytes = 2.0 * D * f * (1 if int8 else 2) + (4.0 * (f + D) if int8 else 0.0)
+    return bound(4.0 * m * D * f, wbytes + 2.0 * (f + D) + 2 * 2.0 * m * D, PEAK_BF16_FLOPS)
+
+
+def k8_chain(x, fc1, fc2):
+    """The unfused MLP K8 replaces, `models/decoder.py`'s path with FUSED_MLP
+    off: fc2(gelu(fc1(x))) through the modules (a QuantLinear widens its int8
+    weight to bf16 on every call, then torch.matmul, the scale, the bias)."""
+    from whisper_at_tpu_torch.models.layers import gelu
+
+    return fc2(gelu(fc1(x)))
+
+
+def k8_layers(gen, dev) -> dict:
+    """N_LAYERS layers' decoder MLP pairs (fc1, fc2) at large-v1 width: bf16
+    Linear pairs drawn from gen ("K8") and their int8 QuantLinear pairs
+    ("K8-int8")."""
+    from whisper_at_tpu_torch.models.layers import Linear, quantize_linear
+
+    layers = {"K8": [], "K8-int8": []}
+    for _ in range(N_LAYERS):
+        pair = (Linear(D, 4 * D, device=dev, dtype=torch.bfloat16),
+                Linear(4 * D, D, device=dev, dtype=torch.bfloat16))
+        for fc in pair:
+            fc.reset_random(gen)
+            fc.requires_grad_(False)
+        layers["K8"].append(pair)
+        layers["K8-int8"].append(tuple(quantize_linear(fc) for fc in pair))
+    return layers
+
+
+def k8_points(card: str, layers=None) -> dict:
+    """K8 and K8-int8 at K8_POINTS, cold as the decode loop meets them: a
+    CUDA graph of one call per layer over N_LAYERS layers' own weight pairs
+    (420 MB int8, 839 MB bf16) with the L2 flushed before each replay, per
+    call (`cold_graph_ms`); the unfused MLP it replaces (`k8_chain`) the
+    same way in the same call; hot figures beside, labelled (one pair, a
+    graph of 20 calls); the host's time a call (`host_ms`, the pairs in
+    turn); the share of the bound. `layers` from `k8_layers`, made here
+    from SEED when None (to time another checkout's K8, import this with
+    that checkout's package first on sys.path: `tools/time_k8.py`). Prints
+    one line a point; returns {(entry, m): dict(ms, chain, hot, hot_chain,
+    host, bound)}."""
+    from whisper_at_tpu_torch.ops import fused_mlp
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    if layers is None:
+        layers = k8_layers(gen, dev)
+    flush = l2_flusher(dev)
+    points = {}
+    with torch.no_grad():
+        for entry, pairs in layers.items():
+            for m in K8_POINTS:
+                x = torch.randn((m, D), generator=gen, device=dev).to(torch.bfloat16)
+
+                def kernel(fc1, fc2, x=x):
+                    return fused_mlp.fused_mlp(x, fc1, fc2)
+
+                def chain(fc1, fc2, x=x):
+                    return k8_chain(x, fc1, fc2)
+
+                r = dict(
+                    ms=cold_graph_ms([lambda p=p: kernel(*p) for p in pairs], flush) / len(pairs),
+                    chain=cold_graph_ms([lambda p=p: chain(*p) for p in pairs],
+                                        flush) / len(pairs),
+                    hot=graph_ms(lambda: kernel(*pairs[0])),
+                    hot_chain=graph_ms(lambda: chain(*pairs[0])),
+                    host=host_ms(kernel, pairs, 4 * len(pairs)),
+                    bound=k8_bound(m, entry == "K8-int8"))
+                points[(entry, m)] = r
+                print(f"{entry} M={m} cold: kernel {r['ms']:.4f} ms, the unfused MLP it "
+                      f"replaces {r['chain']:.4f} ms ({r['ms'] / r['chain']:.3f}x; per call of "
+                      f"a graph over {len(pairs)} layers' pairs, L2 flushed before each "
+                      f"replay); {100 * r['bound'][0] / r['ms']:.1f}% of the "
+                      f"{r['bound'][0]:.4f} ms bound ({r['bound'][1]}); hot (one pair, a graph "
+                      f"of 20 calls): kernel {r['hot']:.4f} ms, unfused {r['hot_chain']:.4f} "
+                      f"ms; host {r['host']:.4f} ms a call [{card}]", flush=True)
+    return points
+
+
+def k8_rows(card: str, gen, dev) -> dict:
+    """K8 and K8-int8 held against the plain version (and against a repeat
+    of the same call, bit for bit) at K8_POINTS on the first layer's pair,
+    then timed (`k8_points`). Each row's ms is the cold call at M = 24; the
+    unfused MLP's cold time and the other points go in its tolerance
+    string."""
+    from whisper_at_tpu_torch.ops import fused_mlp
+
+    layers = k8_layers(gen, dev)
+    points = k8_points(card, layers)
+    rows = {}
+    for entry, pairs in layers.items():
+        errs, tols = [], []
+        for m in K8_POINTS:
+            x = torch.randn((m, D), generator=gen, device=dev).to(torch.bfloat16)
+            e, tol = k8_compare(x, *pairs[0])
+            errs.append(e)
+            tols.append(f"M={m}: err {e:.3e} <= {tol}")
+        at = points[(entry, BATCH)]
+        tols.append(f"cold at M={BATCH}: the unfused MLP it replaces {at['chain']:.4f} ms; "
+                    + ", ".join(f"M={m}: kernel {points[(entry, m)]['ms']:.4f} ms, unfused "
+                                f"{points[(entry, m)]['chain']:.4f} ms"
+                                for m in K8_POINTS if m != BATCH))
+        x = torch.randn((BATCH, D), generator=gen, device=dev).to(torch.bfloat16)
+        weights = (*fused_mlp.linear_weights(pairs[0][0]), *fused_mlp.linear_weights(pairs[0][1]))
+        rows[entry] = dict(
+            module=fused_mlp, kernel=fused_mlp.KERNEL if entry == "K8" else fused_mlp.KERNEL_INT8,
+            err=max(errs), tol="; ".join(tols), ms=at["ms"],
+            plain_ms=graph_ms(lambda: fused_mlp.fused_mlp_plain(x, *weights), 5, 2),
+            library_ms=None, bound=at["bound"])
+    del layers
+    torch.cuda.empty_cache()
+    return rows
+
+
 def kernel_checks(card: str):
     """Each kernel against its plain version at the headline shapes.
     Returns the rows by kernel id and K9's launches in this phase."""
-    from whisper_at_tpu_torch.models.layers import Linear, quantize_linear
     from whisper_at_tpu_torch.ops import (
         cross_decode,
         cross_decode_stream,
@@ -722,7 +851,6 @@ def kernel_checks(card: str):
         enc_flash,
         enc_mlp,
         flash_decode,
-        fused_mlp,
         kv_quant,
     )
 
@@ -794,32 +922,7 @@ def kernel_checks(card: str):
     del x, args, w1, w2
 
     # ---- K8 decode MLP: x [M, 1280], W1 [5120, 1280], W2 [1280, 5120] ----- #
-    fc1, fc2 = Linear(D, f, device=dev, dtype=bf), Linear(f, D, device=dev, dtype=bf)
-    fc1.reset_random(gen)
-    fc2.reset_random(gen)
-    for name, pair in (("K8", (fc1, fc2)),
-                       ("K8-int8", (quantize_linear(fc1), quantize_linear(fc2)))):
-        errs, tols, ms = [], [], {}
-        for m in K8_ROWS:
-            x = randn(m, D)
-            e, tol = k8_compare(x, *pair)
-            errs.append(e)
-            ms[m] = graph_ms(lambda: fused_mlp.fused_mlp(x, *pair))
-            unfused = graph_ms(lambda: pair[1](torch.nn.functional.gelu(pair[0](x))))
-            tols.append(f"M={m}: err {e:.3e} <= {tol}, kernel {ms[m]:.4f} ms, the unfused "
-                        f"MLP it replaces {unfused:.4f} ms")
-        x = randn(BATCH, D)
-        wbytes = (2.0 if name == "K8" else 1.0) * 2 * D * f + (0 if name == "K8" else 4.0 * (f + D))
-        rows[name] = dict(
-            module=fused_mlp, kernel=fused_mlp.KERNEL if name == "K8" else fused_mlp.KERNEL_INT8,
-            err=max(errs), tol="; ".join(tols) + " (device times from CUDA graphs)",
-            ms=ms[BATCH],
-            plain_ms=graph_ms(lambda: fused_mlp.fused_mlp_plain(
-                x, *fused_mlp.linear_weights(pair[0]), *fused_mlp.linear_weights(pair[1])), 5, 2),
-            library_ms=None,
-            bound=bound(4.0 * BATCH * D * f,
-                        wbytes + 2.0 * (f + D) + 2 * 2.0 * BATCH * D, PEAK_BF16_FLOPS))
-    del fc1, fc2, pair, x
+    rows.update(k8_rows(card, gen, dev))
 
     # ---- K3 cross-KV projection + int8: xa [24, 1500, 1280] -------------- #
     xa = randn(BATCH, T_ENC, D)

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card
 (K1-K10, the int4 entries of K3, K4 and K10, the int8 entry of K8, the
 streaming probes P1 and P2; K4 on both of its paths, tensor cores and CUDA
-cores, and with its positions split over clusters).
+cores, and with its positions split over clusters; K8 at every Whisper
+width, in forced tilings and in a CUDA graph).
 
 Every test here needs an NVIDIA GPU and the CUDA toolkit (nvcc); without a
 card they skip. Run them on the card with `pytest -m cuda
@@ -310,29 +311,118 @@ def test_transcribe_batched_beam_runs_through_its_kernels(dev):
     assert all(np.isfinite(seg["avg_logprob"]) for seg in result["segments"])
 
 
-@pytest.mark.parametrize("quantized", [False, True])
-@pytest.mark.parametrize("m", [1, 24, 120])
-def test_fused_mlp_kernel(dev, quantized, m):
-    """K8, bf16 and int8 entries, at a greedy step, a beam-5 step and one row."""
+def _mlp_pair(dev, d, quantized, seed):
+    """fc1 [4d, d], fc2 [d, 4d] Linear modules (random, from seed), or their
+    int8 QuantLinear pairs."""
     from whisper_at_tpu_torch.models.layers import Linear, quantize_linear
-    from whisper_at_tpu_torch.ops import fused_mlp
 
-    gen = torch.Generator(device=dev).manual_seed(6)
-    d, f = 384, 1536
-    fc1 = Linear(d, f, device=dev, dtype=torch.bfloat16)
-    fc2 = Linear(f, d, device=dev, dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    fc1 = Linear(d, 4 * d, device=dev, dtype=torch.bfloat16)
+    fc2 = Linear(4 * d, d, device=dev, dtype=torch.bfloat16)
     fc1.reset_random(gen)
     fc2.reset_random(gen)
     fc1.requires_grad_(False)
     fc2.requires_grad_(False)
     if quantized:
         fc1, fc2 = quantize_linear(fc1), quantize_linear(fc2)
-    x = _randn(gen, m, d)
+    return gen, fc1, fc2
+
+
+def _fused_mlp_holds(x, fc1, fc2):
+    """K8 against fused_mlp_plain at 2^-7 of the output's largest magnitude
+    (+ 1e-3), and a second call on the same inputs bit for bit."""
+    from whisper_at_tpu_torch.ops import fused_mlp
+
     out = fused_mlp.fused_mlp(x, fc1, fc2)
     ref = fused_mlp.fused_mlp_plain(x, *fused_mlp.linear_weights(fc1),
                                     *fused_mlp.linear_weights(fc2))
     _close(out, ref, rel=2 ** -7)
     torch.testing.assert_close(fused_mlp.fused_mlp(x, fc1, fc2), out, rtol=0, atol=0)
+    return out
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("d", [384, 512, 768, 1024, 1280])
+@pytest.mark.parametrize("m", [1, 7, 24, 96, 120, 256])
+def test_fused_mlp_kernel(dev, quantized, d, m):
+    """K8, bf16 and int8 entries, at every Whisper width (F = 4D): one row,
+    a ragged 7, a greedy step, the greedy prefill, a beam-5 step and the
+    largest prefill bucket, through the tilings `plan` picks."""
+    gen, fc1, fc2 = _mlp_pair(dev, d, quantized, 6)
+    _fused_mlp_holds(_randn(gen, m, d), fc1, fc2)
+
+
+# (M, fc1 and fc2 tilings (bn, split, stages, kgroups)) forced on large-v1's
+# widths: K split over clusters of 2, 4 and 8 (fc2 with 8: 16 or 80
+# clusters add their own partials, 2 to 10 columns a block), rings of 1-4
+# stages that wrap many times, taken by both warpgroups in turn (M <= 64)
+# or by one each
+_FORCED_TILINGS = [
+    (24, (80, 2, 1, 1), (80, 8, 2, 2)), (24, (64, 4, 3, 1), (16, 1, 4, 2)),
+    (24, (32, 2, 4, 2), (64, 2, 1, 1)), (24, (16, 1, 2, 2), (64, 4, 3, 1)),
+    (24, (32, 4, 3, 1), (80, 8, 1, 1)), (24, (80, 4, 2, 2), (16, 8, 2, 2)),
+    (120, (80, 2, 1, 1), (80, 8, 2, 1)), (120, (64, 4, 3, 1), (16, 1, 3, 1)),
+    (120, (32, 2, 4, 1), (64, 2, 1, 1)), (120, (16, 1, 2, 1), (64, 4, 3, 1)),
+    (120, (32, 4, 3, 1), (80, 8, 1, 1)), (120, (80, 4, 2, 1), (16, 8, 2, 1))]
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("m, fc1_tiling, fc2_tiling", _FORCED_TILINGS)
+def test_fused_mlp_kernel_in_forced_tilings(dev, monkeypatch, quantized, m, fc1_tiling,
+                                            fc2_tiling):
+    """K8 at large-v1's widths under tilings `plan` does not pick: the
+    cluster's partials add in rank order at every split and width of a
+    block's share, and the ring's phases hold over many wraps."""
+    from whisper_at_tpu_torch.ops import fused_mlp
+
+    fc1_t, fc2_t = fused_mlp.Tiling(*fc1_tiling), fused_mlp.Tiling(*fc2_tiling)
+    wb = 1 if quantized else 2
+    p = fused_mlp.Plan(fc1_t, fc2_t, (fused_mlp.smem_bytes(m, fc1_t, wb),
+                                      fused_mlp.smem_bytes(m, fc2_t, wb)), 2 * m * 5120)
+    monkeypatch.setattr(fused_mlp, "_plan", lambda *a: p)
+    gen, fc1, fc2 = _mlp_pair(dev, 1280, quantized, 8)
+    _fused_mlp_holds(_randn(gen, m, 1280), fc1, fc2)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_fused_mlp_kernel_in_a_cuda_graph(dev, quantized):
+    """K8's two launches (fc2 by programmatic dependent launch) captured in
+    a CUDA graph over three layers' pairs give the eager calls' bits."""
+    from whisper_at_tpu_torch.ops import fused_mlp
+
+    pairs = [_mlp_pair(dev, 1280, quantized, 20 + i)[1:] for i in range(3)]
+    x = _randn(torch.Generator(device=dev).manual_seed(9), 24, 1280)
+    eager = [fused_mlp.fused_mlp(x, *p) for p in pairs]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        [fused_mlp.fused_mlp(x, *p) for p in pairs]
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fused_mlp.fused_mlp(x, *p) for p in pairs]
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for out, want in zip(outs, eager):
+            torch.testing.assert_close(out, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("m, d, f", [(257, 1280, 5120), (24, 1280 + 32, 5120),
+                                     (24, 1280, 5120 + 32)])
+def test_fused_mlp_refuses_shapes_outside_its_contract(dev, m, d, f):
+    """More rows than the largest prefill bucket, or D or F off the 64-column
+    chunk, raise ValueError before anything launches."""
+    from whisper_at_tpu_torch.models.layers import Linear
+    from whisper_at_tpu_torch.ops import cuda, fused_mlp
+
+    fc1 = Linear(d, f, device=dev, dtype=torch.bfloat16).requires_grad_(False)
+    fc2 = Linear(f, d, device=dev, dtype=torch.bfloat16).requires_grad_(False)
+    x = torch.zeros((m, d), device=dev, dtype=torch.bfloat16)
+    before = cuda.launch_counts()["fused_mlp"]
+    with pytest.raises(ValueError):
+        fused_mlp.fused_mlp(x, fc1, fc2)
+    assert cuda.launch_counts()["fused_mlp"] == before
 
 
 def test_flash_decode_kernel(dev):

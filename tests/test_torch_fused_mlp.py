@@ -108,6 +108,56 @@ def test_fused_mlp_refuses_int4_weights():
         k8.fused_mlp(torch.zeros(3, 128), fc1, fc2)
 
 
+@pytest.mark.parametrize("weight_bytes", [1, 2])
+@pytest.mark.parametrize("d", [384, 512, 768, 1024, 1280])
+def test_fused_mlp_plan(d, weight_bytes):
+    """K8's tilings of fc1 (N = 4D, K = D) and fc2 (N = D, K = 4D) at every
+    Whisper width and every M from 1 to 256 on 132 SMs: blocks of 1 to 5
+    strips of 16 weight rows dividing N; at most one wave (132 blocks); K
+    split over a cluster of at most 8 blocks, each with a chunk (two where
+    both warpgroups take its stages in turn, which they do up to 64 rows)
+    and an even share of the block's columns to add; a ring of 1 to
+    MAX_STAGES stages, a multiple of kgroups where it wraps, within an SM's
+    227 KB. The scratch is h [M, F] bf16 alone, no fp32 partials. Where both
+    blocks fit in half an SM the ring keeps at least MIN_SHARED_STAGES
+    stages (or every chunk)."""
+    f = 4 * d
+    for m in range(1, k8.MAX_ROWS + 1):
+        p = k8.plan(m, d, f, 132, weight_bytes)
+        assert p.scratch_bytes == 2 * m * f
+        for t, n, k, smem in ((p.fc1, f, d, p.smem[0]), (p.fc2, d, f, p.smem[1])):
+            chunks, per = k // k8.CHUNK, -(-(k // k8.CHUNK) // t.split)
+            assert t.bn in (16, 32, 48, 64, 80) and n % t.bn == 0
+            assert t.split in (1, 2, 4, 8) and (t.bn // t.split) % 2 == 0
+            assert n // t.bn * t.split <= 132
+            assert t.kgroups == (2 if m <= 64 else 1)  # every width has 6+ chunks
+            assert chunks - (t.split - 1) * per >= t.kgroups
+            assert 1 <= t.stages <= min(per, k8.MAX_STAGES)
+            assert t.stages == per or t.stages % t.kgroups == 0
+            assert smem == k8.smem_bytes(m, t, weight_bytes) <= k8.SMEM_MAX
+            if smem <= k8.SMEM_SHARED:
+                assert t.stages >= min(per, k8.MAX_STAGES, k8.MIN_SHARED_STAGES)
+
+
+@pytest.mark.parametrize("weight_bytes, stages", [(1, 8), (2, 6)])
+def test_fused_mlp_plan_fills_the_card_at_large_v1(weight_bytes, stages):
+    """At large-v1 and a greedy step's 24 rows each product runs 128 blocks
+    of 132 (the old kernel 80 of 128 threads): fc1 80 hidden units a block,
+    K split by 2; fc2 80 outputs a block, K split by 8; both warpgroups take
+    a block's stages in turn, and a block of each product fits one SM."""
+    p = k8.plan(24, 1280, 5120, 132, weight_bytes)
+    assert p.fc1 == k8.Tiling(80, 2, stages, 2) and p.fc2 == k8.Tiling(80, 8, stages, 2)
+    assert sum(p.smem) + 2 * 1024 <= 228 * 1024
+    assert p.scratch_bytes == 24 * 5120 * 2
+
+
+@pytest.mark.parametrize("m, d, f", [(0, 1280, 5120), (257, 1280, 5120), (24, 1312, 5120),
+                                     (24, 1280, 5152)])
+def test_fused_mlp_plan_refuses_shapes_outside_its_contract(m, d, f):
+    with pytest.raises(ValueError):
+        k8.plan(m, d, f, 132)
+
+
 @pytest.fixture(scope="module")
 def pair():
     jm = JaxWhisper(JaxDims(**DIMS), seed=3)

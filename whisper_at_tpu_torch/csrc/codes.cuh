@@ -1,6 +1,7 @@
 // int8 and packed int4 codes widened exactly in registers, for the kernels
-// that read K3's quantized cross K/V (K4, K10): to fp32 for products on the
-// CUDA cores, to pairs of bf16 for mma.sync operands.
+// that read K3's quantized cross K/V (K4, K10) and K8's int8 weights: to
+// fp32 for products on the CUDA cores, to pairs of bf16 for mma.sync
+// operands.
 //
 // fp32: a byte permute puts the code, biased to 0..255 (int8: c ^ 0x80;
 // int4: its nibble ^ 8), into the low bits of 2^23, and one subtraction
@@ -51,6 +52,15 @@ __device__ __forceinline__ uint32_t sub_bf16x2(uint32_t x, uint32_t y) {
 // the int8 codes in bytes 0 and 2 of w -> one bf16 pair (byte 0 low)
 __device__ __forceinline__ uint32_t pair8(uint32_t w) {
   return sub_bf16x2((w & 0x007F007Fu) | 0x43004300u, (w & 0x00800080u) | 0x43004300u);
+}
+
+// the four int8 codes of w (byte j: code j) -> two bf16 pairs in k order,
+// lo = {code 0, code 1} and hi = {code 2, code 3}: one byte permute puts
+// codes 0 and 1 in bytes 0 and 2 (codes 2 and 3 in bytes 1 and 3) for pair8
+__device__ __forceinline__ void pairs8(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = __byte_perm(w, 0u, 0x3120);
+  lo = pair8(u);
+  hi = pair8(u >> 8);
 }
 
 // the int4 codes in bits 0-3 and 16-19 of w -> one bf16 pair (bits 0-3 low)

@@ -2,9 +2,9 @@
 // mbarriers, TMA box loads and stores through tensor maps, 1-D bulk
 // copies, the host's encoding of a tensor map, the cluster's barrier and
 // distributed shared memory, and the wgmma descriptors, fences and the
-// m64n128k16 product with both operands in shared memory. Used by
-// attn_sm90.cuh (K1, K7), gemm_sm90.cuh (K2), cross_decode_stream.cu (K10)
-// and cross_decode.cu (K4).
+// m64n128k16 product with both operands in shared memory, and programmatic
+// dependent launch. Used by attn_sm90.cuh (K1, K7), gemm_sm90.cuh (K2),
+// cross_decode_stream.cu (K10), cross_decode.cu (K4) and fused_mlp.cu (K8).
 //
 // Shared memory is addressed by 32-bit shared-window addresses (smem_u32).
 // The tensor maps are encoded on the host per call, by the driver's
@@ -97,6 +97,19 @@ __device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity)
   }
 }
 
+// ---- device: programmatic dependent launch -------------------------------- //
+// lets the next kernel of the stream, launched with the programmatic stream
+// serialization attribute, start once every block of this grid has issued it
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// waits until the grids this one depends on have completed and their writes
+// are visible (returns at once in a kernel launched without the attribute)
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
 // ---- device: thread block clusters ------------------------------------------ //
 __device__ __forceinline__ uint32_t cluster_rank() {
   uint32_t r;
@@ -129,6 +142,23 @@ __device__ __forceinline__ void st_async(uint32_t remote, float v, uint32_t remo
       "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n" ::"r"(remote),
       "r"(__float_as_uint(v)), "r"(remote_bar)
       : "memory");
+}
+
+// 8 bytes {a, b} into another block's shared memory at `remote` (8-byte
+// aligned), completing on its barrier `remote_bar`
+__device__ __forceinline__ void st_async2(uint32_t remote, float a, float b,
+                                          uint32_t remote_bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], {%1, %2}, [%3];\n" ::
+          "r"(remote),
+      "r"(__float_as_uint(a)), "r"(__float_as_uint(b)), "r"(remote_bar)
+      : "memory");
+}
+
+// fetches a tensor map (a __grid_constant__ kernel parameter) ahead of its
+// first copy
+__device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
 
 // the box of `map` at coordinates {c0, c1, c2} into shared memory at dst;
