@@ -11,7 +11,11 @@ it (the headline workload: large-v1, batch 24, bf16; K5 at the decode
 loop's four weight shapes with 24 and 96 rows; the DTW at the word timing's
 matrix sizes) and times both; K2 also beside the unfused chain it
 replaces, at the headline's rows and at one audio row (`k2_points`), with
-the kernel before its redesign as recorded (K2_BEFORE). The decode
+the kernel before its redesign as recorded (K2_BEFORE); K3 and K3-int4 as
+`precompute_cross_kv` meets them, a CUDA graph of one launch a layer over
+32 layers' weight pairs on one xa, at batch 24 and at one audio row, each
+also held against its plain version at both (`k3_points`; K3_BEFORE as
+recorded). The decode
 loop's own operands are timed cold, as the loop meets them after the
 other layers': K5 and its
 torch.matmul yardstick as a CUDA graph of one greedy step's 192 products
@@ -128,6 +132,11 @@ PROBE_MB = 512
 PROBE_CHUNK_KB = 1024
 PROBE_ITERS = 5
 PROBE_ROWS = {"P1": "auto", "P2-cp": "cp-4", "P2-tma": "tma-4"}
+# K3 and K3-int4 before their redesign on gemm_sm90.cuh, as recorded (not
+# this run)
+K3_BEFORE = ("K3 1.0242-1.0435 ms, K3-int4 1.0131-1.0139 ms at [24, 1500, 1280], 0.0529-0.0545 "
+             "ms at [1, 1500, 1280] (recorded: tools/time_k3.py over a git archive of 330a10f, "
+             "NVIDIA H100 80GB HBM3, 700.00 W)")
 # K2 before its redesign on gemm_sm90.cuh, as recorded (not this run)
 K2_BEFORE = ("4.1369-4.1376 ms at [24, 1500, 1280], 0.2445-0.2502 ms at [1, 1500, 1280] "
              "(recorded: k2_points over a git archive of 4d99e7e, NVIDIA H100 80GB HBM3, "
@@ -504,6 +513,72 @@ def k2_points(card: str, args=None) -> None:
                      f"{chain:.4f} ms ({ms / chain:.3f}x), {100 * b_ms / ms:.1f}% of the "
                      f"{b_ms:.4f} ms bound")
     print("K2: " + "; ".join(parts) + f"; before its redesign {K2_BEFORE} [{card}]", flush=True)
+
+
+def k3_bound(b: int, bits: int):
+    """K3's bound (or K3-int4's) at b audio rows of large-v1: xa, the weight
+    pair and bv read once, the codes and fp32 scales of K and V written
+    once; 2 x 2 b Ta D D operations."""
+    ta_pad = -(-T_ENC // 128) * 128
+    return bound(2.0 * 2 * b * T_ENC * D * D,
+                 2.0 * b * T_ENC * D + 2 * 2.0 * D * D + 2.0 * D
+                 + 2 * (b * ta_pad * D * bits / 8 + 4.0 * b * H * ta_pad),
+                 PEAK_BF16_FLOPS)
+
+
+def k3_inputs(gen, dev):
+    """xa [24, 1500, 1280] and N_LAYERS layers' (wk, wv, bv) at large-v1
+    width, bf16, drawn from gen."""
+    def uniform(*shape):
+        return ((torch.rand(shape, generator=gen, device=dev) * 2 - 1) * D ** -0.5).to(
+            torch.bfloat16)
+
+    xa = torch.randn((BATCH, T_ENC, D), generator=gen, device=dev).to(torch.bfloat16)
+    return xa, [(uniform(D, D), uniform(D, D), uniform(D)) for _ in range(N_LAYERS)]
+
+
+def k3_points(card: str, xa=None, layers=None) -> dict:
+    """K3 and K3-int4 as `precompute_cross_kv` meets them: one launch a
+    layer over N_LAYERS layers' own weight pairs (210 MB) on one xa, each
+    into its layer's slice of a stacked output, timed per launch as a CUDA
+    graph of the N_LAYERS launches (`cold_graph_ms`; the weights and the
+    batch-24 xa exceed the L2 between reuses), at the headline's [24, 1500,
+    1280] and at one audio row (xa's first); the plain version beside (one
+    layer, eager); the share of the bound. xa and layers from `k3_inputs`,
+    made here from SEED when None (to time another checkout's K3, import
+    this with that checkout's package first: `tools/time_k3.py`). Prints one
+    line a point; returns {(entry, b): dict(ms, plain, bound)}."""
+    from whisper_at_tpu_torch.ops import kv_quant
+
+    dev = torch.device("cuda")
+    if xa is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        xa, layers = k3_inputs(gen, dev)
+    ta_pad = kv_quant.pad_ta(T_ENC)
+    points = {}
+    for entry, bits in (("K3", 8), ("K3-int4", 4)):
+        project = kv_quant.project_quantize_kv4 if bits == 4 else kv_quant.project_quantize_kv
+        for b in (BATCH, 1):
+            x = xa[:b]
+            k = torch.empty((N_LAYERS, b, ta_pad, D * bits // 8), dtype=torch.int8, device=dev)
+            ks = torch.empty((N_LAYERS, b, H, ta_pad), dtype=torch.float32, device=dev)
+            v, vs = torch.empty_like(k), torch.empty_like(ks)
+            fns = [lambda i=i, w=w: project(x, *w, out=(k[i], ks[i], v[i], vs[i]))
+                   for i, w in enumerate(layers)]
+            r = dict(ms=cold_graph_ms(fns, lambda: None) / N_LAYERS,
+                     plain=time_ms(lambda: kv_quant.project_quantize_kv_plain(
+                         x, *layers[0], bits=bits), 3, 1),
+                     bound=k3_bound(b, bits))
+            del fns, k, ks, v, vs
+            points[(entry, b)] = r
+            print(f"{entry} [{b}, {T_ENC}, {D}]: kernel {r['ms']:.4f} ms a launch (a CUDA "
+                  f"graph of {N_LAYERS} launches over {N_LAYERS} layers' weight pairs on one "
+                  f"xa), {100 * r['bound'][0] / r['ms']:.1f}% of the {r['bound'][0]:.4f} ms "
+                  f"bound ({r['bound'][1]}); plain {r['plain']:.4f} ms [{card}]", flush=True)
+    torch.cuda.empty_cache()
+    print(f"K3 before its redesign: {K3_BEFORE}", flush=True)
+    return points
 
 
 def k3_compare(xa, wk, wv, bv, bits: int = 8):
@@ -924,21 +999,24 @@ def kernel_checks(card: str):
     # ---- K8 decode MLP: x [M, 1280], W1 [5120, 1280], W2 [1280, 5120] ----- #
     rows.update(k8_rows(card, gen, dev))
 
-    # ---- K3 cross-KV projection + int8: xa [24, 1500, 1280] -------------- #
-    xa = randn(BATCH, T_ENC, D)
-    wk, wv = uniform(D, D, bound_=D ** -0.5), uniform(D, D, bound_=D ** -0.5)
-    bv = uniform(D, bound_=D ** -0.5)
-    err, tol, kern = k3_compare(xa, wk, wv, bv)
+    # ---- K3 cross-KV projection + int8: xa [24, 1500, 1280], one audio row - #
+    xa, layers = k3_inputs(gen, dev)
+    k3 = k3_points(card, xa, layers)
+    wk, wv, bv = layers[0]
+    del layers
+    outs = {}
+    for entry, bits in (("K3", 8), ("K3-int4", 4)):
+        err, tol, outs[bits] = k3_compare(xa, wk, wv, bv, bits=bits)
+        err_row, tol_row, _ = k3_compare(xa[:1], wk, wv, bv, bits=bits)
+        rows[entry] = dict(
+            module=kv_quant, kernel=kv_quant.KERNEL4 if bits == 4 else kv_quant.KERNEL,
+            err=max(err, err_row),
+            tol=(f"{tol}; [1, {T_ENC}, {D}]: err {err_row:.3e}, {tol_row}, "
+                 f"{k3[(entry, 1)]['ms']:.4f} ms a launch"),
+            ms=k3[(entry, BATCH)]["ms"], plain_ms=k3[(entry, BATCH)]["plain"],
+            library_ms=None, bound=k3_bound(BATCH, bits))
     ta_pad = kv_quant.pad_ta(T_ENC)
-    rows["K3"] = dict(
-        module=kv_quant, err=err, tol=tol,
-        ms=time_ms(lambda: kv_quant.project_quantize_kv(xa, wk, wv, bv, out=kern), 10),
-        plain_ms=time_ms(lambda: kv_quant.project_quantize_kv_plain(xa, wk, wv, bv), 3, 1),
-        library_ms=None,
-        bound=bound(2.0 * 2 * BATCH * T_ENC * D * D,
-                    2.0 * BATCH * T_ENC * D + 2 * 2.0 * D * D + 2.0 * D
-                    + 2 * (BATCH * ta_pad * D + 4.0 * BATCH * H * ta_pad),
-                    PEAK_BF16_FLOPS))
+    kern = outs.pop(8)
 
     # ---- K4 decode-step cross-attention over K3's output ------------------ #
     kq, ks, vq, vs = kern
@@ -964,20 +1042,8 @@ def kernel_checks(card: str):
     rows["K10"] = k10_row(randn, kern, bias, 8, rows["K4"], points)
     del kern, kq, ks, vq, vs
 
-    # ---- K3-int4: the same projection, packed int4 codes [24, 1536, 640] --- #
-    err, tol, kern = k3_compare(xa, wk, wv, bv, bits=4)
-    rows["K3-int4"] = dict(
-        module=kv_quant, kernel=kv_quant.KERNEL4, err=err, tol=tol,
-        ms=time_ms(lambda: kv_quant.project_quantize_kv4(xa, wk, wv, bv, out=kern), 10),
-        plain_ms=time_ms(lambda: kv_quant.project_quantize_kv_plain(xa, wk, wv, bv, bits=4),
-                         3, 1),
-        library_ms=None,
-        bound=bound(2.0 * 2 * BATCH * T_ENC * D * D,
-                    2.0 * BATCH * T_ENC * D + 2 * 2.0 * D * D + 2.0 * D
-                    + 2 * (BATCH * ta_pad * D / 2 + 4.0 * BATCH * H * ta_pad),
-                    PEAK_BF16_FLOPS))
-
-    # ---- K4-int4 over K3-int4's output ----------------------------------- #
+    # ---- K4-int4 over K3-int4's output [24, 1536, 640] --------------------- #
+    kern = outs.pop(4)
     rows["K4-int4"], points = k4_row(card, randn, kern, bias, 4)
     rows["K10-int4"] = k10_row(randn, kern, bias, 4, rows["K4-int4"], points)
     del kern, xa

@@ -157,6 +157,160 @@ def test_kv_quant_and_cross_decode_kernels(dev, groups):
     _close(out, ref, rel=1e-3)
 
 
+def _kv_quant_holds(xa, wk, wv, bv, bits):
+    """K3 (or K3-int4) against project_quantize_kv_plain: codes within 1 LSB
+    on <= 1e-3 of the entries, scales within 2^-7 relative; the pad rows
+    t >= Ta exactly zero, codes and scales; a second call bit for bit.
+    Returns the kernel's output."""
+    from whisper_at_tpu_torch.models.layers import unpack4
+    from whisper_at_tpu_torch.ops.kv_quant import (
+        project_quantize_kv, project_quantize_kv4, project_quantize_kv_plain)
+
+    project = project_quantize_kv4 if bits == 4 else project_quantize_kv
+    kern = project(xa, wk, wv, bv)
+    plain = project_quantize_kv_plain(xa, wk, wv, bv, bits=bits)
+    codes = (lambda t: unpack4(t).int()) if bits == 4 else (lambda t: t.int())
+    for i in (0, 2):
+        diff = (codes(kern[i]) - codes(plain[i])).abs()
+        assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) <= 1e-3
+    for i in (1, 3):
+        rel = ((kern[i] - plain[i]).abs() / plain[i].clamp_min(1e-30)).max()
+        assert float(rel) <= 2 ** -7
+    ta = xa.shape[1]
+    for i in (0, 2):
+        assert not bool(kern[i][:, ta:].any()) and not bool(kern[i + 1][:, :, ta:].any())
+    for out, again in zip(kern, project(xa, wk, wv, bv)):
+        assert torch.equal(out, again)
+    return kern
+
+
+def _kv_quant_args(gen, b, ta, d):
+    return (_randn(gen, b, ta, d), _randn(gen, d, d, scale=d ** -0.5),
+            _randn(gen, d, d, scale=d ** -0.5), _randn(gen, d, scale=0.02))
+
+
+# every Whisper width x Ta below, at and past one 128-row panel, a ragged
+# 300 and the full 1500, the audio rows B in {1, 5, 24} taken in turn
+_KV_QUANT_SHAPES = [(b, ta, d) for i, d in enumerate([384, 512, 768, 1024, 1280])
+                    for j, ta in enumerate([1, 127, 128, 129, 300, 1500])
+                    for b in [(1, 5, 24)[(i + j) % 3]]]
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("b, ta, d", _KV_QUANT_SHAPES)
+def test_kv_quant_kernels_at_every_width(dev, bits, b, ta, d):
+    """K3 and K3-int4 on gemm_sm90.cuh at every Whisper width, through the
+    block width `plan` picks (128 where 256-wide tiles would leave SMs
+    idle), with the pad rows of each audio row zero."""
+    gen = torch.Generator(device=dev).manual_seed(b * ta + d)
+    _kv_quant_holds(*_kv_quant_args(gen, b, ta, d), bits)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_kv_quant_kernels_at_the_headline_shape(dev, bits):
+    """K3 and K3-int4 at large-v1 batch 24 (xa [24, 1500, 1280]), where the
+    plan takes 256-wide tiles on 132 blocks, 2880 tiles."""
+    from whisper_at_tpu_torch.ops.kv_quant import plan
+
+    assert plan(24, 1500, 1280, 132) == (256, 132)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    _kv_quant_holds(*_kv_quant_args(gen, 24, 1500, 1280), bits)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_kv_quant_kernels_in_a_cuda_graph(dev, bits):
+    """K3's launches over three layers' weights captured in a CUDA graph
+    give the eager calls' bits."""
+    from whisper_at_tpu_torch.ops.kv_quant import project_quantize_kv, project_quantize_kv4
+
+    project = project_quantize_kv4 if bits == 4 else project_quantize_kv
+    gen = torch.Generator(device=dev).manual_seed(12)
+    xa = _randn(gen, 5, 300, 512)
+    layers = [_kv_quant_args(gen, 1, 1, 512)[1:] for _ in range(3)]
+    eager = [project(xa, *w) for w in layers]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        [project(xa, *w) for w in layers]
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [project(xa, *w) for w in layers]
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for out, want in zip(outs, eager):
+            for o, w in zip(out, want):
+                assert torch.equal(o, w)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("case", ["d", "out_shape", "out_dtype", "xa_dtype"])
+def test_kv_quant_refuses_inputs_outside_its_contract(dev, bits, case):
+    """D not a multiple of 128, an `out` of the wrong shape or dtype, or xa
+    not bf16 raise ValueError before anything launches."""
+    from whisper_at_tpu_torch.ops import cuda
+    from whisper_at_tpu_torch.ops.kv_quant import (
+        _allocate, pad_ta, project_quantize_kv, project_quantize_kv4)
+
+    project = project_quantize_kv4 if bits == 4 else project_quantize_kv
+    b, ta, d = 2, 300, 192 if case == "d" else 256
+    gen = torch.Generator(device=dev).manual_seed(13)
+    xa, wk, wv, bv = _kv_quant_args(gen, b, ta, d)
+    out = None
+    if case == "out_shape":
+        out = _allocate(b, pad_ta(ta), d, dev, 8 if bits == 4 else 4)
+    elif case == "out_dtype":
+        kq, ks, vq, vs = _allocate(b, pad_ta(ta), d, dev, bits)
+        out = (kq, ks.double(), vq, vs)
+    elif case == "xa_dtype":
+        xa = xa.float()
+    name = "kv_quant4" if bits == 4 else "kv_quant"
+    before = cuda.launch_counts()[name]
+    with pytest.raises(ValueError):
+        project(xa, wk, wv, bv, out=out)
+    assert cuda.launch_counts()[name] == before
+
+
+@pytest.mark.parametrize("weight_quant", [False, True])
+@pytest.mark.parametrize("b, s", [(24, 16), (120, 4), (24, 4)])
+def test_decoder_forward_with_fused_mlp_over_a_prefill(dev, monkeypatch, weight_quant, b, s):
+    """`decoder_forward` with FUSED_MLP over a prefill of B*S rows: past K8's
+    MAX_ROWS (a batch of 24 at bucket 16, beam 5 at batch 24) no row goes to
+    K8 and the hidden states are the unfused path's bit for bit; within it
+    (the greedy prefill, 96 rows) K8 takes each layer's MLP and the result
+    holds to the unfused path at bf16 level."""
+    import whisper_at_tpu_torch as wat
+    from whisper_at_tpu_torch.models import decoder
+    from whisper_at_tpu_torch.ops import cuda, fused_mlp
+
+    model = wat.build_model("tiny", device=dev, dtype=torch.bfloat16, seed=0)
+    params = model.decoder_params_decode(weight_quant=weight_quant)
+    dims = model.dims
+    gen = torch.Generator(device=dev).manual_seed(14)
+    xa = _randn(gen, b, 1500, dims.n_audio_state)
+    cross = decoder.precompute_cross_kv(params, xa, dims.n_text_head, torch.bfloat16,
+                                        quantize=True)
+    tokens = torch.randint(0, dims.n_vocab, (b, s), generator=gen, device=dev)
+    entry = "fused_mlp_int8" if weight_quant else "fused_mlp"
+    hidden, launches = {}, {}
+    for fused in (False, True):
+        monkeypatch.setattr(decoder, "FUSED_MLP", fused)
+        cache = decoder.init_cache(dims.n_text_layer, b, 32, dims.n_text_state, torch.bfloat16,
+                                   dims.n_text_head, quantize=True, device=dev)
+        before = cuda.launch_counts()[entry]
+        hidden[fused] = decoder.decoder_forward(params, tokens, cross, cache, 0, 0,
+                                                dims.n_text_head, torch.bfloat16)
+        launches[fused] = cuda.launch_counts()[entry] - before
+    assert launches[False] == 0
+    if b * s > fused_mlp.MAX_ROWS:
+        assert launches[True] == 0
+        assert torch.equal(hidden[True], hidden[False])
+    else:
+        assert launches[True] == dims.n_text_layer
+        _close(hidden[True], hidden[False], rel=2 ** -5)
+
+
 # large-v1's four decode weight shapes (K, N): qkv, out, fc1, fc2
 _W4_SHAPES = [(1280, 3840), (1280, 1280), (1280, 5120), (5120, 1280)]
 

@@ -199,6 +199,37 @@ def test_fused_mlp_over_a_prefill_covers_every_row(pair, monkeypatch, weight_qua
     assert float((hidden[True][:, 1:] - hidden[True][:, :1]).abs().min()) > 0
 
 
+@pytest.mark.parametrize("weight_quant", [False, True])
+def test_fused_mlp_switch_leaves_a_prefill_over_max_rows_unfused(pair, monkeypatch,
+                                                                 weight_quant):
+    """With FUSED_MLP on and K8's row cap below a prefill's B*S rows, the
+    decoder sends none of them to K8 and gives the unfused path's hidden
+    states bit for bit; a prefill within the cap still goes through it, one
+    call a layer."""
+    _, tm = pair
+    params = tm.decoder_params_decode(weight_quant=weight_quant)
+    xa = torch.from_numpy(np.random.default_rng(4).standard_normal((2, 1500, 128))
+                          .astype(np.float32))
+    cross = precompute_cross_kv(params, xa, 2, quantize=True)
+    tokens = torch.tensor([[50258, 50259, 50359, 440, 1002], [50258, 50259, 50359, 50363, 11]])
+    calls = []
+    monkeypatch.setattr(decoder, "fused_mlp", lambda *a: calls.append(a) or k8.fused_mlp(*a))
+
+    def forward(fused: bool, max_rows: int):
+        monkeypatch.setattr(decoder, "FUSED_MLP", fused)
+        monkeypatch.setattr(k8, "MAX_ROWS", max_rows)
+        cache = init_cache(2, 2, 16, 128, torch.float32, 2, quantize=True)
+        return decoder_forward(params, tokens, cross, cache, 0, 0, 2)
+
+    unfused = forward(False, 256)
+    over = forward(True, tokens.numel() - 1)
+    assert calls == []
+    assert torch.equal(over, unfused)
+    forward(True, tokens.numel())
+    assert len(calls) == len(params.blocks)
+    assert all(a[0].shape == (tokens.numel(), 128) for a in calls)
+
+
 def test_transcribe_batched_with_every_switch_matches_jax(pair, monkeypatch):
     """The port's transcribe_batched with ENC_ATTN=flash (K7),
     CROSS_DECODE=stream (K10) and FUSED_MLP (K8, int8 weights) against the

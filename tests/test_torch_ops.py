@@ -85,6 +85,29 @@ def test_enc_mlp_plan(d, m):
     assert enc_mlp_ops.plan(1500, 1280, 132) == (128, 120)
 
 
+@pytest.mark.parametrize("b", [1, 5, 24])
+@pytest.mark.parametrize("ta", [1, 300, 1500])
+@pytest.mark.parametrize("d", [384, 512, 768, 1024, 1280])
+def test_kv_quant_plan(d, ta, b):
+    """K3's GEMM plan (K2's rule over b * Ta_pad rows and K and V as two runs
+    of D columns): a block width the C entry is built for that divides D, so
+    no tile straddles K and V; 256 only where its tiles still give every one
+    of 132 SMs a block, else 128; one persistent block an SM, fewer only
+    where there are fewer tiles."""
+    from whisper_at_tpu_torch.ops import kv_quant as kv_quant_ops
+
+    source = open(os.path.join(cuda.CSRC, "kv_quant.cu")).read()
+    bn, blocks = kv_quant_ops.plan(b, ta, d, 132)
+    assert bn in enc_mlp_ops.WIDTHS and d % bn == 0
+    assert f"gemm_sm90::launch<{bn}>" in source
+    tiles = b * pad_ta(ta) // 128 * 2 * (d // bn)
+    assert blocks == min(132, tiles)
+    wide_fills = d % 256 == 0 and b * pad_ta(ta) // 128 * 2 * (d // 256) >= 132
+    assert bn == (256 if wide_fills else 128)
+    assert kv_quant_ops.plan(24, 1500, 1280, 132) == (256, 132)   # 2880 tiles
+    assert kv_quant_ops.plan(1, 1500, 1280, 132) == (128, 132)    # 240 tiles, not 120
+
+
 def test_quantize_sym_bitwise():
     """The int8 formula gives the same codes and scales as _quantize_sym on
     the same input, including exact ties and all-zero slices."""

@@ -60,8 +60,9 @@ from chip_smoke import (  # noqa: E402
 # device kernels of the port, by the name of their __global__ function
 # (K1 and K7 are both attn_sm90's attn_kernel; a call runs one of them;
 # K2 is ln_rows, then gemm_sm90's gemm_kernel for fc1 (BiasGelu) and for
-# fc2 (BiasResidual); K8 is fused_mlp_gemm twice, fc1 then fc2)
-PORT_KERNELS = ("attn_kernel", "ln_rows", "BiasGelu", "BiasResidual", "kv_quant",
+# fc2 (BiasResidual); K3 and K3-int4 are gemm_kernel with the KvQuantize
+# epilogue; K8 is fused_mlp_gemm twice, fc1 then fc2)
+PORT_KERNELS = ("attn_kernel", "ln_rows", "BiasGelu", "BiasResidual", "KvQuantize",
                 "cross_decode_kernel", "cross_decode_stream_kernel",
                 "cross_decode_stream_combine", "w4_matmul_kernel",
                 "fused_mlp_gemm", "flash_decode", "dtw")

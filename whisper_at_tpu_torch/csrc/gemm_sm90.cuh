@@ -1,22 +1,33 @@
-// One bf16 GEMM for Hopper (sm_90a), the products of K2 (enc_mlp.cu):
+// One bf16 GEMM for Hopper (sm_90a), the products of K2 (enc_mlp.cu) and
+// K3 (kv_quant.cu):
 //
-//   C[M, N] = epi(A[M, K] B[N, K]^T),  fp32 sums, C bf16
+//   C[z] = epilogue(A[z] B^T),  A[z] [M, K] for z < Z, B [N, K], fp32 sums
 //
 // A and B are K-major (B is a weight in torch's Linear layout, which is
 // wgmma's K-major B operand as it lies, so no transposing copy is made).
-// `epi` gives the value each sum starts from, by row and column (the
-// caller's bias and residual: epi.init), and a function applied to each
-// finished sum in registers before rounding (GELU: epi(s)).
+// A is one matrix (K2, Z = 1) or a batch of them (K3: xa [B, Ta, D], one
+// matrix an audio row), read through one 3-D tensor map {K, M, Z}. B's
+// rows come from two tensor maps: rows [0, n_split) from the first, the
+// rest from the second (K3's Wk and Wv side by side, with no concatenated
+// copy; K2 passes one map twice).
+// The epilogue is a policy, Epi: the value each sum starts from, by row and
+// column (epi.init), and what becomes of a warpgroup's finished 64 x BN
+// sums (epi.store). StoreBf16 below is K2's: a function of each sum in
+// registers (its GELU), bf16, a TMA store a 64-column chunk. K3's quantizes
+// each 64-column chunk (one head) in registers and stores int8 or int4
+// codes and fp32 scales (kv_quant.cu).
 //
 // Grid: persistent, one block per SM (the wrapper passes the card's SM
 // count, fewer when there are fewer tiles). Block b takes the 128 x BN
 // output tiles b, b + grid, b + 2 grid, ... of a list that walks N fastest
-// inside a 128-row panel of A, so the blocks in flight share a few panels
-// of A and all of B in L2. BN is 256 or 128 (the wrapper's plan).
+// inside a 128-row panel of A, panels of A[0] first, then A[1], ..., so the
+// blocks in flight share a few panels of A and all of B in L2. BN is 256 or
+// 128 (the wrapper's plan). A tile never spans two matrices of A: each
+// has ceil(M / 128) panels, rows past M loading as zeros.
 // A block is NC = 2 consumer warpgroups and one producer warpgroup:
-//   Producer: one thread issues TMA copies through 3-D tensor maps (d2 = 1)
-//     with 128-byte swizzle: per k-step of BK = 64 (one 128-byte span of
-//     bf16) the A box {64, 128} and the B box {64, BN} into a ring of
+//   Producer: one thread issues TMA copies through the tensor maps with
+//     128-byte swizzle: per k-step of BK = 64 (one 128-byte span of bf16)
+//     the A box {64, 128, 1} and the B box {64, BN} into a ring of
 //     STAGES = 4 stages, each guarded by a full and an empty mbarrier. One
 //     counter of k-steps runs through all the block's tiles, on both sides,
 //     and gives each stage and its phase bit; the producer runs into the
@@ -31,13 +42,14 @@
 //     registers are free: read in the epilogue, next to 128 live sums,
 //     those loads left ptxas too few registers to keep them in flight, and
 //     each waited its full latency (PERF.md).
-//   Epilogue: per 64-column chunk, epi in registers, bf16 into one of the
-//     warpgroup's two 8 KB staging buffers (the 128-byte swizzle: 16-byte
-//     chunk index XOR row % 8, conflict-free), then one TMA store of the
-//     {64, 64} box, which clips rows past M. A buffer is written again only
-//     after the store two chunks back has read it (bulk_wait_read<1>), so
-//     stores overlap the next chunk's arithmetic, and the producer's copies
-//     of the next tile overlap the whole epilogue.
+//   Epilogue (StoreBf16): per 64-column chunk, epi in registers, bf16 into
+//     one of the warpgroup's two 8 KB staging buffers (the 128-byte
+//     swizzle: 16-byte chunk index XOR row % 8, conflict-free), then one
+//     TMA store of the {64, 64} box, which clips rows past M. A buffer is
+//     written again only after the store two chunks back has read it
+//     (bulk_wait_read<1>), so stores overlap the next chunk's arithmetic,
+//     and the producer's copies of the next tile overlap the whole
+//     epilogue. K3's policy keeps the same buffers and the same order.
 // Both warpgroups work on one tile ("cooperative"): the tensor cores idle
 // while they run the epilogue, which at K = 1280 with erf-GELU is a large
 // share of a tile's time. Warpgroups taking 128 x 128 tiles in turn, so
@@ -46,7 +58,7 @@
 // measured slower on the H100 (PERF.md): one warpgroup's products
 // alone ran far below the rate of two at once.
 // Registers: 384 threads cap ptxas at 168 a thread (ENTRY_REGS); setmaxnreg
-// takes the producer down to 40 and gives each consumer 232. run() holds
+// takes the producer down to 40 and gives each consumer 232. launch() holds
 // the compiled count to ENTRY_REGS at its first call: with fewer,
 // setmaxnreg.inc would wait for registers the block never got, so it
 // returns REGS_ERROR + the count instead of launching.
@@ -157,34 +169,42 @@ struct Ring {
   __device__ __forceinline__ uint32_t empty(int s) const { return full(s) + 8 * STAGES; }
 };
 
-// The tile list: N fastest inside a 128-row panel.
+// The tile list: N fastest inside a 128-row panel, the panels of A[0],
+// then those of A[1], ...
 struct Tiles {
-  int M, n_tiles_n, count, nk;
-  __device__ __forceinline__ int m0(int t) const { return (t / n_tiles_n) * BM; }
+  int panels;      // 128-row panels of one matrix of A
+  int n_tiles_n, count, nk;
+  int n_split;     // B's rows from here on come from the second map
+  __device__ __forceinline__ int panel(int t) const { return t / n_tiles_n; }
+  __device__ __forceinline__ int m0(int t) const { return (panel(t) % panels) * BM; }
+  __device__ __forceinline__ int z(int t) const { return panel(t) / panels; }
   __device__ __forceinline__ int n0(int t, int bn) const { return (t % n_tiles_n) * bn; }
 };
 
 template <int BN>
 __device__ __forceinline__ void produce(const Ring<BN>& r, const Tiles& tl, const CUtensorMap* amap,
-                                        const CUtensorMap* bmap) {
+                                        const CUtensorMap* bmap0, const CUtensorMap* bmap1) {
   uint32_t it = 0;
   for (int t = blockIdx.x; t < tl.count; t += gridDim.x) {
-    const int m0 = tl.m0(t), n0 = tl.n0(t, BN);
+    const int m0 = tl.m0(t), z = tl.z(t), n0 = tl.n0(t, BN);
+    const bool second = n0 >= tl.n_split;
+    const CUtensorMap* bmap = second ? bmap1 : bmap0;
+    const int nb = second ? n0 - tl.n_split : n0;
     for (int kb = 0; kb < tl.nk; ++kb, ++it) {
       const int s = it % STAGES;
       // stage s's previous k-step (it - STAGES) released by every consumer warp
       if (it >= STAGES) mbar_wait(r.empty(s), ((it / STAGES) & 1) ^ 1);
       mbar_expect_tx(r.full(s), Layout<BN>::STAGE);
-      tma_load(r.a_tile(s), amap, kb * BK, m0, 0, r.full(s));
-      tma_load(r.b_tile(s), bmap, kb * BK, n0, 0, r.full(s));
+      tma_load(r.a_tile(s), amap, kb * BK, m0, z, r.full(s));
+      tma_load(r.b_tile(s), bmap, kb * BK, nb, 0, r.full(s));
     }
   }
 }
 
 // One consumer warpgroup `wg`: rows 64 wg .. 64 wg + 63 of every tile.
 template <int BN, class Epi>
-__device__ __forceinline__ void consume(const Ring<BN>& r, const Tiles& tl,
-                                        const CUtensorMap* cmap, const Epi& epi, int wg) {
+__device__ __forceinline__ void consume(const Ring<BN>& r, const Tiles& tl, const Epi& epi,
+                                        int wg) {
   const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32, quad = lane & 3;
   float acc[BN / 2];
   uint32_t it = 0;
@@ -217,16 +237,35 @@ __device__ __forceinline__ void consume(const Ring<BN>& r, const Tiles& tl,
     wgmma_wait<0>();
     hold(acc);
     if (lane == 0) mbar_arrive(r.empty((it - 1) % STAGES));
+    epi.store(acc, r.epi_buf(wg, 0), wg, tl.z(t), row_g, n0);
+  }
+  // the stores read shared memory and write C before the block retires
+  if (tid == 0) bulk_wait_all();
+}
 
-    // the accumulator layout of m64nNk16: for each 8-column block j, acc[4j],
-    // acc[4j+1] at row 16 warp + lane/4, columns 8j + 2 quad + {0, 1}, and
-    // acc[4j+2], acc[4j+3] 8 rows below
-    if (row_g >= tl.M) continue;  // rows all past M: nothing to store
+// The accumulator layout of m64nNk16, which the policies read: for each
+// 8-column block j, acc[4j], acc[4j+1] at row 16 warp + lane/4, columns
+// 8j + 2 quad + {0, 1}, and acc[4j+2], acc[4j+3] 8 rows below.
+
+// K2's epilogue: C = f(sum) in bf16 through the tensor map cmap ([M, N],
+// box {EPI_COLS, WG_ROWS}, 128-byte swizzle); f.init gives the sums'
+// start (bias, residual). `bufs` is the warpgroup's first staging buffer.
+template <class F>
+struct StoreBf16 {
+  CUtensorMap cmap;
+  F f;
+  int M;
+  __device__ __forceinline__ float2 init(int row, int col) const { return f.init(row, col); }
+  template <int N>
+  __device__ __forceinline__ void store(float (&acc)[N], uint32_t bufs, int wg, int,
+                                        int row_g, int n0) const {
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32, quad = lane & 3;
+    if (row_g >= M) return;  // rows all past M: nothing to store
 #pragma unroll
-    for (int c = 0; c < BN / EPI_COLS; ++c) {
+    for (int c = 0; c < 2 * N / EPI_COLS; ++c) {
       // a tile has an even number of chunks, so chunk c of every tile
       // takes buffer c % 2
-      const uint32_t buf = r.epi_buf(wg, c % EPI_BUFS);
+      const uint32_t buf = bufs + (c % EPI_BUFS) * EPI_TILE;
       // the store that last read buf (two chunks back) is done with it
       if (tid == 0) bulk_wait_read<EPI_BUFS - 1>();
       named_sync(1 + wg, 128);
@@ -237,22 +276,21 @@ __device__ __forceinline__ void consume(const Ring<BN>& r, const Tiles& tl,
         for (int i = 0; i < 2; ++i) {
           const int row = warp * 16 + (lane >> 2) + 8 * i;
           st_shared(buf + row * ROW + ((j ^ (row & 7)) << 4) + quad * 4,
-                    pack_bf16(epi(acc[4 * jj + 2 * i]), epi(acc[4 * jj + 2 * i + 1])));
+                    pack_bf16(f(acc[4 * jj + 2 * i]), f(acc[4 * jj + 2 * i + 1])));
         }
       }
       fence_async_shared();
       named_sync(1 + wg, 128);
-      if (tid == 0) tma_store_async(cmap, buf, n0 + c * EPI_COLS, row_g, 0);
+      if (tid == 0) tma_store_async(&cmap, buf, n0 + c * EPI_COLS, row_g, 0);
     }
   }
-  // the stores read shared memory and write C before the block retires
-  if (tid == 0) bulk_wait_all();
-}
+};
 
 template <int BN, class Epi>
 __global__ void __launch_bounds__(THREADS, 1)
-    gemm_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap bmap,
-                const __grid_constant__ CUtensorMap cmap, const Epi epi, Tiles tl) {
+    gemm_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap bmap0,
+                const __grid_constant__ CUtensorMap bmap1, const __grid_constant__ Epi epi,
+                Tiles tl) {
   extern __shared__ uint8_t smem_raw[];
   Ring<BN> r;
   r.base = (smem_u32(smem_raw) + 1023) & ~1023u;  // 1024-aligned: the swizzle's period
@@ -267,10 +305,10 @@ __global__ void __launch_bounds__(THREADS, 1)
   __syncthreads();
   if (wg == NC) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
-    if (threadIdx.x == NC * 128) produce(r, tl, &amap, &bmap);
+    if (threadIdx.x == NC * 128) produce(r, tl, &amap, &bmap0, &bmap1);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
-    consume(r, tl, &cmap, epi, wg);
+    consume(r, tl, epi, wg);
   }
 }
 
@@ -283,11 +321,24 @@ inline int encode_matrix(EncodeTiled fn, CUtensorMap* map, const void* x, int ro
                    box_rows, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B);
 }
 
-// C[M, N] = epi(A[M, K] B[N, K]^T) on `blocks` persistent blocks; A, B, C
-// contiguous bf16, 16-byte aligned; N % BN == 0, K % 64 == 0, M >= 1.
+// The tile list of Z matrices of A of M rows, N columns of B (the first
+// n_split from the first map), depth K, at block width bn.
+inline Tiles tiles(int Z, int M, int N, int n_split, int K, int bn) {
+  Tiles tl;
+  tl.panels = (M + BM - 1) / BM;
+  tl.n_tiles_n = N / bn;
+  tl.count = Z * tl.panels * tl.n_tiles_n;
+  tl.nk = K / BK;
+  tl.n_split = n_split;
+  return tl;
+}
+
+// The GEMM of the tile list tl on `blocks` persistent blocks: A through
+// amap (box {BK, BM, 1}), B through bmap0 and bmap1 (box {BK, BN}), all
+// bf16 with 128-byte swizzle; epi as above. N % BN == 0, K % 64 == 0.
 template <int BN, class Epi>
-inline int run(const void* a, const void* b, void* c, const Epi& epi, int M, int N, int K,
-               int blocks, cudaStream_t stream) {
+inline int launch(const CUtensorMap& amap, const CUtensorMap& bmap0, const CUtensorMap& bmap1,
+                  const Epi& epi, const Tiles& tl, int blocks, cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
     // the register count ptxas compiled is what setmaxnreg's arithmetic
@@ -301,21 +352,28 @@ inline int run(const void* a, const void* b, void* c, const Epi& epi, int M, int
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
+  gemm_kernel<BN, Epi><<<blocks, THREADS, Layout<BN>::SMEM, stream>>>(amap, bmap0, bmap1, epi, tl);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// C[M, N] = f(A[M, K] B[N, K]^T) in bf16 (K2's products) on `blocks`
+// persistent blocks; A, B, C contiguous bf16, 16-byte aligned; N % BN == 0,
+// K % 64 == 0, M >= 1.
+template <int BN, class F>
+inline int run(const void* a, const void* b, void* c, const F& f, int M, int N, int K,
+               int blocks, cudaStream_t stream) {
   EncodeTiled fn;
   const cudaError_t e = encode_function(&fn);
   if (e != cudaSuccess) return static_cast<int>(e);
-  CUtensorMap am, bm, cm;
+  StoreBf16<F> epi;
+  epi.f = f;
+  epi.M = M;
+  CUtensorMap am, bm;
   int rc = encode_matrix(fn, &am, a, M, K, BM, BK);
   if (rc == 0) rc = encode_matrix(fn, &bm, b, N, K, BN, BK);
-  if (rc == 0) rc = encode_matrix(fn, &cm, c, M, N, WG_ROWS, EPI_COLS);
+  if (rc == 0) rc = encode_matrix(fn, &epi.cmap, c, M, N, WG_ROWS, EPI_COLS);
   if (rc != 0) return rc;
-  Tiles tl;
-  tl.M = M;
-  tl.n_tiles_n = N / BN;
-  tl.count = (M + BM - 1) / BM * tl.n_tiles_n;
-  tl.nk = K / BK;
-  gemm_kernel<BN, Epi><<<blocks, THREADS, Layout<BN>::SMEM, stream>>>(am, bm, cm, epi, tl);
-  return static_cast<int>(cudaGetLastError());
+  return launch<BN>(am, bm, bm, epi, tiles(1, M, N, N, K, BN), blocks, stream);
 }
 
 }  // namespace

@@ -15,9 +15,10 @@ packed by `layers.pack4` everywhere.
 Two switches of the JAX package choose its alternative kernels here:
 WHISPER_AT_TPU_CROSS_DECODE=stream serves K4's calls with K10
 (`ops/cross_decode_stream.py`), at both widths; `FUSED_MLP = True` runs the
-decode MLP through K8 (`ops/fused_mlp.py`) over all B*S rows (the JAX code
-feeds its kernel the first position only, which would drop every other
-prefill position; that is not carried over). The JAX package reads the
+decode MLP through K8 (`ops/fused_mlp.py`) over all B*S rows where they
+are at most its MAX_ROWS, and a larger prefill through the unfused MLP (the
+JAX code feeds its kernel the first position only, which would drop every
+other prefill position; that is not carried over). The JAX package reads the
 variable once, at import, because its decode traces are cached; eager
 PyTorch caches nothing, so the port reads it once per `decoder_forward`
 call. That is the one difference in when it is read; the port also
@@ -39,6 +40,7 @@ from torch import nn
 
 from ..ops.cross_decode import cross_attention_int4, cross_attention_int8, pad_bias
 from ..ops.cross_decode_stream import cross_attention_stream, cross_attention_stream4
+from ..ops import fused_mlp as k8
 from ..ops.fused_mlp import fused_mlp
 from ..ops.kv_quant import pad_ta, project_quantize_kv, project_quantize_kv4, quantize_sym
 from .layers import (
@@ -305,6 +307,10 @@ def decoder_forward(params: Parts, tokens: torch.Tensor, cross: CrossKV,
     mask = torch.zeros(allowed.shape, device=dev).masked_fill(~allowed, NEG_INF)
 
     bits = cache.bits
+    # K8 takes at most MAX_ROWS rows (every decode step, the smaller
+    # prefills); a larger prefill takes the unfused MLP, as QuantLinear4
+    # leaves rows past K5's limit to torch.matmul
+    fused = FUSED_MLP and tokens.numel() <= k8.MAX_ROWS
     for i, blk in enumerate(params.blocks):
         q, k_new, v_new = blk.attn.qkv(blk.attn_ln(x)).chunk(3, dim=-1)
         qh = _split_heads(q, n_head)
@@ -337,7 +343,7 @@ def decoder_forward(params: Parts, tokens: torch.Tensor, cross: CrossKV,
         x = x + blk.attn.out(_merge_heads(attn))
         x = _cross_attn_apply(blk, x, cross, i, n_head, compute_dtype, group, stream)
         h = blk.mlp_ln(x)
-        if FUSED_MLP:
+        if fused:
             b, s_, d = h.shape
             x = x + fused_mlp(h.reshape(b * s_, d), blk.mlp[0], blk.mlp[2]).reshape(b, s_, d)
         else:

@@ -31,14 +31,18 @@ def sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def plan(m: int, n: int, sms: int):
-    """(block width, blocks) of the GEMM C[m, n] = A[m, k] B[n, k]^T on a
-    card with `sms` SMs: 256-wide tiles where n allows and they still give
-    every SM a tile, else 128 (n is a multiple of 128); one persistent block
-    an SM, fewer where there are fewer tiles. At large-v1 (fc1 n = 5120,
-    fc2 n = 1280) batch 24 takes 256 for both; one audio row (m = 1500)
-    takes 256 for fc1 (240 tiles) and 128 for fc2 (120 tiles, not 60)."""
-    panels = -(-m // BM)
+def plan(m: int, n: int, sms: int, parts: int = 1):
+    """(block width, blocks) of a GEMM on `csrc/gemm_sm90.cuh`, C[m, parts *
+    n] = A[m, k] B[parts * n, k]^T, whose columns come in `parts` runs of n
+    that no tile straddles (K3's K and V: parts = 2, n = D; m counts the
+    rows of whole 128-row panels), on a card with `sms` SMs: 256-wide tiles
+    where n allows and they still give every SM a tile, else 128 (n is a
+    multiple of 128); one persistent block an SM, fewer where there are
+    fewer tiles. At large-v1 (fc1 n = 5120, fc2 n = 1280) batch 24 takes
+    256 for both; one audio row (m = 1500) takes 256 for fc1 (240 tiles)
+    and 128 for fc2 (120 tiles, not 60), and K3 at one audio row (m = 1536,
+    2 x 1280 columns) 128 (240 tiles, not 120)."""
+    panels = -(-m // BM) * parts
     bn = next((w for w in WIDTHS if n % w == 0 and panels * (n // w) >= sms), WIDTHS[-1])
     return bn, min(sms, panels * (n // bn))
 

@@ -22,7 +22,8 @@ its weight once through a TMA ring. `plan` picks the tilings; one launch
 count per call.
 
 `models/decoder.py` routes the decode MLP through it when its module
-constant `FUSED_MLP` is True, over all B*S rows (at most MAX_ROWS).
+constant `FUSED_MLP` is True, over all B*S rows of a call that has at most
+MAX_ROWS of them; a larger prefill takes the unfused MLP there.
 """
 
 import ctypes
@@ -47,7 +48,7 @@ CHUNK = 64           # K of a ring stage; D and F must be multiples of it
 STRIP = 16           # a block's weight rows are 1-5 strips (one wgmma m64n{bn}k16)
 WIDTHS = tuple(STRIP * n for n in range(1, 6))
 WARPGROUPS = 2       # consumer warpgroups of a block
-MAX_ROWS = 256       # the largest prefill bucket's rows
+MAX_ROWS = 256       # rows of one call: the decode steps and the smaller prefills
 MAX_STAGES = 16
 SMEM_MAX = 227 * 1024
 # a block of fc1 and one of fc2 side by side on an SM, so that fc2's first

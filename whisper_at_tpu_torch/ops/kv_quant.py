@@ -5,7 +5,10 @@ Replaces `whisper_at_tpu/ops/kv_quant.py::project_quantize_kv` (Pallas),
 bits = 8 (`KERNEL`) and bits = 4 (`KERNEL4`, its own entry so that its
 launch count shows the int4 path ran it), and carries `_quantize_sym`
 (`whisper_at_tpu/models/decoder.py:241`). The CUDA source is
-`csrc/kv_quant.cu`; its header gives the bound and the design.
+`csrc/kv_quant.cu`; its header gives the bound and the design: the
+products on K2's persistent TMA + wgmma template (`csrc/gemm_sm90.cuh`),
+quantized in its epilogue. The block width and grid are K2's rule
+(`enc_mlp.plan`, with K and V as two runs of D columns).
 
 Layout, chosen together with K4 (`ops/cross_decode.py`): codes are row-major
 int8 [B, Ta_pad, H*64], so the 64 codes of one (position, head) are
@@ -22,8 +25,10 @@ import torch
 
 from ..models.layers import QMAX, linear, pack4
 from .cuda import CudaKernel, ptr, require_cuda, stream_handle
+from .enc_mlp import plan as gemm_plan, sm_count
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# xa, wk, wv, bv, kq, ks, vq, vs; B, Ta, Ta_pad, D, block width, blocks; the stream
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 KERNEL = CudaKernel("kv_quant", "kv_quant.cu", "kv_quant_bf16", _ARGTYPES,
                     replaces="whisper_at_tpu/ops/kv_quant.py:102")
 KERNEL4 = CudaKernel("kv_quant4", "kv_quant.cu", "kv_quant4_bf16", _ARGTYPES,
@@ -65,6 +70,14 @@ def _allocate(b: int, ta_pad: int, d: int, device, bits: int = 8):
     scales = lambda: torch.empty((b, d // HEAD_DIM, ta_pad), device=device,
                                  dtype=torch.float32)
     return codes(), scales(), codes(), scales()
+
+
+def plan(b: int, ta: int, d: int, sms: int):
+    """(block width, blocks) of K3's GEMM over b audio rows of ta positions
+    (each padded to whole 128-row panels) and the 2 x d columns of K and V
+    on a card with `sms` SMs: at large-v1 batch 24, 256-wide tiles on 132
+    blocks; at one audio row, 128-wide (240 tiles, where 256 gives 120)."""
+    return gemm_plan(b * pad_ta(ta), d, sms, parts=2)
 
 
 def project_quantize_kv_plain(xa, wk, wv, bv, out: Optional[tuple] = None, bits: int = 8):
@@ -132,5 +145,6 @@ def _project_quantize(xa, wk, wv, bv, out, bits: int):
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
     kernel = KERNEL4 if bits == 4 else KERNEL
     kernel.launch(ptr(xa), ptr(wk), ptr(wv), ptr(bv), ptr(kq), ptr(ks), ptr(vq), ptr(vs),
-                  b, ta, ta_pad, d, stream_handle(xa.device))
+                  b, ta, ta_pad, d, *plan(b, ta, d, sm_count(xa.device.index or 0)),
+                  stream_handle(xa.device))
     return kq, ks, vq, vs
