@@ -52,9 +52,12 @@ before and read just after, and checks its output:
 Each path's kernel inputs are also recorded (`Recorder`) and every kernel
 is held against its plain version on them: K1-K5, K7, K8, K10 and the int4
 entries at each shape the path gave them (K8 also against a repeat of the
-same call, bit for bit), K6 on every call. K9 has no path
-(nothing in the JAX package calls it): it is held and timed on the
-headline's own cross-K/V at one query row per head.
+same call, bit for bit), K6 on every call (bit for bit in float64 and
+float32, beside its chain floor: `k6_step_ns` measures one step of its
+dependent chain). K9 has no path (nothing in the JAX package calls it): it
+is held against its plain version on the headline's own cross-K/V at one
+query row per head, at batch 24 and one audio row, and timed cold there
+over K/V sets used in turn (`k9_points`, K9_BEFORE as recorded).
 
 Printed, in order: the card's name and power limit (nvidia-smi), the build
 time, one line per kernel check (K5 one per weight shape and row count),
@@ -69,6 +72,8 @@ result lines. Without a CUDA card it exits non-zero at once.
 """
 
 import contextlib
+import ctypes
+import functools
 import itertools
 import json
 import os
@@ -343,16 +348,54 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def dtw_check(cases) -> dict:
-    """K6 against its plain wavefront on each (x [G, N_max, M], n [G]) case,
-    bit for bit with float64 and with float32 sums; the largest difference
-    of a trace value over every compared pair; the kernel's, the plain
-    version's and the byte bound's mean time per call in float64 (the
-    path's type). Bytes: each valid cost row read once, the skewed int8
-    trace written once."""
+STEP_ITERS = 1 << 20  # dependent steps of the chain floor's measurement
+
+
+@functools.lru_cache(maxsize=None)
+def k6_step_ns() -> dict:
+    """The latency of one step of K6's dependent chain on the card, in ns,
+    by sum type, along a row (the cost feeds the next step's compares and
+    add) and across rows (and a shuffle from lane l - 1 before them): one
+    warp runs STEP_ITERS such steps (`dtw_step_clocks` in csrc/dtw.cu),
+    timed by CUDA events. Returns {(dtype, crosses_rows): ns}."""
     from whisper_at_tpu_torch.ops import dtw
 
-    err, ms, plain_ms, bound_ms = 0.0, [], [], []
+    fn = dtw.KERNEL.c_function("dtw_step_clocks", [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                               + [ctypes.c_void_p])
+    seed = torch.randn(128, device="cuda")
+    out = torch.zeros(2, dtype=torch.int64, device="cuda")
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    ns = {}
+    for acc in (torch.float64, torch.float32):
+        for cross in (False, True):
+            def run():
+                rc = fn(ctypes.c_void_p(seed.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+                        STEP_ITERS, int(acc == torch.float64), int(cross), stream)
+                if rc:
+                    raise RuntimeError(f"dtw_step_clocks: CUDA error {rc}")
+            ns[(acc, cross)] = time_ms(run, 3, 1) * 1e6 / STEP_ITERS
+    return ns
+
+
+def k6_floor_ms(n: int, m: int, acc, step_ns: dict) -> float:
+    """K6's chain floor for one matrix of n DP rows and m columns: the path
+    from (1, 1) to (n, m) has n + m - 1 cells, each a step of the chain
+    along a row, and n - 1 of them cross rows (a shuffle more)."""
+    along, across = step_ns[(acc, False)], step_ns[(acc, True)]
+    return ((n + m - 1) * along + (n - 1) * (across - along)) / 1e6
+
+
+def dtw_check(cases, step_ns: dict) -> dict:
+    """K6 against its plain wavefront on each (x [G, N_max, M], n [G]) case,
+    bit for bit with float64 and with float32 sums; the largest difference
+    of a trace value over every compared pair; the kernel's (float64, the
+    path's type, and float32), the plain version's, the byte bound's and
+    the chain floor's (`k6_floor_ms` over the largest n, float64) mean time
+    per call. Bytes: each valid cost row read once, the skewed int8 trace
+    written once."""
+    from whisper_at_tpu_torch.ops import dtw
+
+    err, ms, ms32, plain_ms, bound_ms, floor_ms = 0.0, [], [], [], [], []
     for x, n in cases:
         for acc in (torch.float64, torch.float32):
             out = dtw.dtw_trace(x, n, acc)
@@ -364,13 +407,16 @@ def dtw_check(cases) -> dict:
                                      f"plain version at {int((out != ref).sum())} cells")
         g, n_max, m = x.shape
         ms.append(time_ms(lambda: dtw.dtw_trace(x, n), 10))
+        ms32.append(time_ms(lambda: dtw.dtw_trace(x, n, torch.float32), 10))
         plain_ms.append(time_ms(lambda: dtw.dtw_trace_plain(x, n), 1, 1))
         nbytes = 4.0 * int(n.sum()) * m + g * (n_max + m + 1) * (n_max + 1) + 4.0 * g
         bound_ms.append(bound(0.0, nbytes, PEAK_FP32_FLOPS)[0])
+        floor_ms.append(k6_floor_ms(min(int(n.max()), n_max), m, torch.float64, step_ns))
     shapes = ", ".join(f"{list(x.shape)} n={n.tolist()}" for x, n in cases)
     steps = [x.shape[1] + x.shape[2] - 1 for x, _ in cases]
-    return dict(err=err, ms=float(np.mean(ms)), plain_ms=float(np.mean(plain_ms)),
-                bound=(float(np.mean(bound_ms)), "bytes"),
+    return dict(err=err, ms=float(np.mean(ms)), ms32=float(np.mean(ms32)),
+                plain_ms=float(np.mean(plain_ms)), bound=(float(np.mean(bound_ms)), "bytes"),
+                floor=float(np.mean(floor_ms)),
                 tol=f"trace bitwise equal with float64 and float32 sums over {shapes}; "
                     f"{steps} diagonal steps")
 
@@ -691,6 +737,47 @@ def k9_compare(q, kq, ks, vq, vs, n_head, s):
                              f"by {worst:.3f}x")
     return float(diff.max()), f"|out - ref| <= 1e-5 + 2^-7 |ref| per element, worst at " \
                               f"{worst:.3f} of it"
+
+
+# K9 before its redesign (git ea8d90e), cold, eager over K/V sets used in
+# turn (`k9_points`) at batch 24 and one audio row: the mean of two turns of
+# tools/time_k6_k9.py in one call on an NVIDIA H100 80GB HBM3 at 700 W, not
+# measured in the run that prints them
+K9_BEFORE = {BATCH: 0.0748, 1: 0.0557}
+
+
+def k9_points(randn, kv) -> dict:
+    """K9 cold, as K4 is timed (`cross_decode_points`): at batch 24 over
+    COLD_SETS copies of kv (K3's layout, (kq, ks, vq, vs)) and at one audio
+    row over enough copies of kv's first row to put A1_MB between reuses,
+    one query row a head over T_ENC positions; eager (`cycle_ms`) and in a
+    CUDA graph (`cold_cycle_ms`). Returns {A: dict(ms=, graph=, bound=(ms,
+    by), sets=n)}."""
+    from whisper_at_tpu_torch.ops import flash_decode
+
+    row = tuple(t[:1].contiguous() for t in kv)
+    sets_of = {BATCH: cold_sets(kv),
+               1: cold_sets(row, max(COLD_SETS, int(-(-A1_MB // set_mb(row))) + 1))}
+    points = {}
+    for a, sets in sets_of.items():
+        q = randn(a * H, DH)
+        fn = lambda *s: flash_decode.flash_decode_cross(q, *s, H, T_ENC)  # noqa: E731
+        points[a] = dict(
+            ms=cycle_ms(fn, sets, max(48, 2 * len(sets))), graph=cold_cycle_ms(fn, sets),
+            bound=bound(4.0 * a * H * T_ENC * DH,
+                        2 * a * T_ENC * D + 2 * 4.0 * a * H * T_ENC + 2 * 2.0 * a * H * DH,
+                        PEAK_FP32_FLOPS),
+            sets=len(sets))
+    return points
+
+
+def print_k9_points(card: str, points: dict) -> None:
+    for a, p in points.items():
+        print(f"K9 A={a} G=1 cold over {p['sets']} K/V sets: eager {p['ms']:.4f} ms, graph "
+              f"{p['graph']:.4f} ms; {100 * p['bound'][0] / p['ms']:.1f}% of the "
+              f"{p['bound'][0]:.4f} ms bound eager, {100 * p['bound'][0] / p['graph']:.1f}% in "
+              f"the graph; before its redesign {K9_BEFORE[a]:.4f} ms eager (K9_BEFORE, "
+              f"recorded, not this run) [{card}]", flush=True)
 
 
 def k10_compare(q, kq, ks, vq, vs, bias, n_head, bits: int = 8):
@@ -1027,15 +1114,17 @@ def kernel_checks(card: str):
     q9 = randn(BATCH * H, DH)
     before = flash_decode.KERNEL.launches
     err, tol = k9_compare(q9, kq, ks, vq, vs, H, T_ENC)
+    err_row, tol_row = k9_compare(q9[:H], *(t[:1].contiguous() for t in kern), H, T_ENC)
+    k9 = k9_points(randn, kern)
+    print_k9_points(card, k9)
     rows["K9"] = dict(
-        module=flash_decode, err=err, tol=f"{tol}; K4 {rows['K4']['ms']:.4f} ms at G=1",
-        ms=time_ms(lambda: flash_decode.flash_decode_cross(q9, kq, ks, vq, vs, H, T_ENC), 50),
+        module=flash_decode, err=max(err, err_row),
+        tol=(f"{tol}; one audio row: {tol_row}; cold eager over K/V sets in turn, K4 "
+             f"{rows['K4']['ms']:.4f} ms at G=1 the same way"),
+        ms=k9[BATCH]["ms"],
         plain_ms=time_ms(lambda: flash_decode.flash_decode_cross_plain(
             q9, kq, ks, vq, vs, H, T_ENC), 5, 1),
-        library_ms=None,
-        bound=bound(4.0 * BATCH * H * T_ENC * DH,
-                    2 * BATCH * T_ENC * D + 2 * 4.0 * BATCH * H * T_ENC + 2 * 2.0 * BATCH * H * DH,
-                    PEAK_FP32_FLOPS))
+        library_ms=None, bound=k9[BATCH]["bound"])
     k9_launches = flash_decode.KERNEL.launches - before
 
     # ---- K10 streamed cross decode on the same inputs: G = 5 and G = 1 ----- #
@@ -1052,15 +1141,23 @@ def kernel_checks(card: str):
     rows["K5"] = k5_rows(gen, dev)
 
     # ---- K6 DTW trace: ragged [4, 101, 1500], then [1, 448, 1500] ---------- #
+    step_ns = k6_step_ns()
+    print("K6 step latency: " + ", ".join(
+        f"{'float64' if acc == torch.float64 else 'float32'} "
+        f"{'across rows' if cross else 'along a row'} {ns:.3f} ns"
+        for (acc, cross), ns in step_ns.items()) + f" [{card}]", flush=True)
     cases = []
     for lengths in (DTW_ROWS, (DTW_WORST,)):
         x = torch.randn((len(lengths), max(lengths), DTW_FRAMES), generator=gen, device=dev)
         cases.append((x, torch.tensor(lengths, dtype=torch.int32, device=dev)))
-    worst = dtw_check(cases[1:])
-    rows["K6"] = dict(module=dtw, library_ms=None, **dtw_check(cases[:1]))
+    worst = dtw_check(cases[1:], step_ns)
+    rows["K6"] = dict(module=dtw, library_ms=None, **dtw_check(cases[:1], step_ns))
     rows["K6"]["err"] = max(rows["K6"]["err"], worst["err"])
     rows["K6"]["tol"] += (f"; [1, {DTW_WORST}, {DTW_FRAMES}] takes {worst['ms']:.4f} ms "
-                          f"({DTW_WORST + DTW_FRAMES - 1} steps, bitwise equal too)")
+                          f"(float32 {worst['ms32']:.4f}; chain floor {worst['floor']:.4f} ms; "
+                          f"{DTW_WORST + DTW_FRAMES - 1} steps, bitwise equal too)")
+    print_k6(card, "[4, 101/87/64/33, 1500]", rows["K6"])
+    print_k6(card, f"[1, {DTW_WORST}, {DTW_FRAMES}]", worst)
     del cases
 
     for name, r in rows.items():
@@ -1072,6 +1169,12 @@ def kernel_checks(card: str):
               f"[{card}]", flush=True)
     torch.cuda.empty_cache()
     return rows, k9_launches
+
+
+def print_k6(card: str, label: str, r: dict) -> None:
+    print(f"K6 {label}: float64 {r['ms']:.4f} ms, float32 {r['ms32']:.4f} ms; chain floor "
+          f"{r['floor']:.4f} ms (float64, {100 * r['floor'] / r['ms']:.1f}% of the kernel's "
+          f"time); byte bound {r['bound'][0]:.4f} ms [{card}]", flush=True)
 
 
 def k4_row(card: str, randn, kv, bias, bits: int):
@@ -1258,10 +1361,11 @@ def hold_path_inputs(card: str, label: str, inputs: dict):
                   f"(tol {tol}) [{card}]", flush=True)
     if not inputs["K6"]:
         return None
-    k6 = dtw_check([(x, n) for x, n, *_ in inputs["K6"]])
+    k6 = dtw_check([(x, n) for x, n, *_ in inputs["K6"]], k6_step_ns())
     print(f"{label}: K6 on its {len(inputs['K6'])} inputs: max_abs_err={k6['err']:.1f} "
-          f"({k6['tol']}), kernel_ms={k6['ms']:.4f} plain_ms={k6['plain_ms']:.4f} "
-          f"bound_ms={k6['bound'][0]:.4f} (bytes), means per call [{card}]", flush=True)
+          f"({k6['tol']}), kernel_ms={k6['ms']:.4f} (float32 {k6['ms32']:.4f}) "
+          f"plain_ms={k6['plain_ms']:.4f} bound_ms={k6['bound'][0]:.4f} (bytes), chain "
+          f"floor {k6['floor']:.4f} ms, means per call [{card}]", flush=True)
     return k6
 
 
@@ -1657,7 +1761,8 @@ def main() -> int:
          "plain_ms": r["plain_ms"],
          "bound_ms": r["bound"][0],
          "bound_by": r["bound"][1],
-         "library_ms": r["library_ms"]}
+         "library_ms": r["library_ms"],
+         **({"chain_floor_ms": r["floor"]} if "floor" in r else {})}
         for name, r in rows.items()]}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

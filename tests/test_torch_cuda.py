@@ -405,6 +405,48 @@ def test_dtw_kernel(dev, dtype):
         assert torch.equal(out, ref)
 
 
+def _dtw_inputs(rng, g, n_max, m):
+    """Costs with ties (small integers), +inf, -inf and NaN sprinkled in."""
+    x = rng.integers(-2, 3, (g, n_max, m)).astype(np.float32)
+    x += rng.standard_normal(x.shape).astype(np.float32) * (rng.random(x.shape) < 0.5)
+    for value, share in ((np.inf, 0.01), (-np.inf, 0.005), (np.nan, 0.005)):
+        x[rng.random(x.shape) < share] = value
+    return x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m", [1, 2, 33, 1500])
+@pytest.mark.parametrize("n_max", [1, 31, 32, 33, 64, 65, 97, 448, 511])
+def test_dtw_kernel_at_warp_and_handover_edges(dev, n_max, m, dtype):
+    """K6 bit for bit against its plain version at row counts on each side of
+    a warp (32 rows) and of a hand-over between warps, up to the 16 warps
+    of 511 rows; M from one frame to 1500; a ragged batch (a count past
+    N_max acts as N_max, 0 leaves only row 0) with ties and infinities."""
+    from whisper_at_tpu_torch.ops.dtw import dtw_trace, dtw_trace_plain
+
+    rng = np.random.default_rng(n_max * 7 + m)
+    lengths = sorted({n_max, max(n_max // 2, 1), 1, 0, n_max + 3}, reverse=True)
+    x = torch.from_numpy(_dtw_inputs(rng, len(lengths), n_max, m)).to(dev)
+    n = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    out = dtw_trace(x, n, dtype)
+    ref = dtw_trace_plain(x, n, dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref), int((out != ref).sum())
+
+
+@pytest.mark.parametrize("handover", [8, 16, 32])
+def test_dtw_kernel_every_handover_length(dev, monkeypatch, handover):
+    """Each hand-over length the C entry takes gives the same trace."""
+    from whisper_at_tpu_torch.ops import dtw
+
+    monkeypatch.setattr(dtw, "HANDOVER", handover)
+    rng = np.random.default_rng(handover)
+    x = torch.from_numpy(_dtw_inputs(rng, 2, 130, 700)).to(dev)
+    n = torch.tensor([130, 77], dtype=torch.int32, device=dev)
+    for dtype in (torch.float32, torch.float64):
+        assert torch.equal(dtw.dtw_trace(x, n, dtype), dtw.dtw_trace_plain(x, n, dtype))
+
+
 def test_transcribe_batched_runs_through_every_kernel(dev):
     """With word timestamps and the int8 options the call reaches K1-K4 and
     K6, and no int4 entry."""
@@ -594,6 +636,57 @@ def test_flash_decode_kernel(dev):
     out = flash_decode_cross(q, kq, ks, vq, vs, h, ta)
     ref = flash_decode_cross_plain(q, kq, ks, vq, vs, h, ta)
     _close(out, ref, rel=2 ** -7)
+
+
+def _k9_inputs(gen, a, h, s_pad):
+    kq, vq = (torch.randint(-127, 128, (a, s_pad, h * 64), generator=gen, device="cuda",
+                            dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand((a, h, s_pad), generator=gen, device="cuda") * 0.02 for _ in range(2))
+    return _randn(gen, a * h, 64), kq, ks, vq, vs
+
+
+def _within_k9_bound(out, ref):
+    """chip_smoke.k9_compare's bound: 1e-5 + 2^-7 |ref| per element."""
+    diff = (out.float() - ref.float()).abs()
+    worst = float((diff / (1e-5 + 2 ** -7 * ref.float().abs())).max())
+    assert worst <= 1.0, f"|out - ref| exceeds 1e-5 + 2^-7 |ref| by {worst:.3f}x"
+
+
+@pytest.mark.parametrize("a, h, s, s_pad", [(1, 20, 1500, 1536), (24, 20, 1500, 1536),
+                                            (1, 4, 1, 128), (1, 4, 129, 256), (2, 4, 300, 384),
+                                            (3, 2, 2048, 2048), (1, 20, 1024, 1024)])
+def test_flash_decode_kernel_splits_and_ragged_stages(dev, a, h, s, s_pad):
+    """K9 at S not a multiple of a stage (1, 129, 300, 1500), one audio row
+    (the positions split over a cluster) and 24 (one run a block), a full
+    last stage, and a run of eight stages."""
+    from whisper_at_tpu_torch.ops.flash_decode import flash_decode_cross, flash_decode_cross_plain
+
+    gen = torch.Generator(device=dev).manual_seed(a * 1000 + s)
+    args = _k9_inputs(gen, a, h, s_pad)
+    out = flash_decode_cross(*args, h, s)
+    ref = flash_decode_cross_plain(*args, h, s)
+    _within_k9_bound(out, ref)
+    assert torch.equal(out, flash_decode_cross(*args, h, s))  # no atomics: a repeat is exact
+
+
+@pytest.mark.parametrize("a", [1, 24])
+def test_flash_decode_kernel_in_a_cuda_graph(dev, a):
+    """K9 captured in a CUDA graph and replayed on new inputs gives what an
+    eager call gives on them, bit for bit."""
+    from whisper_at_tpu_torch.ops.flash_decode import flash_decode_cross
+
+    gen = torch.Generator(device=dev).manual_seed(a)
+    args = _k9_inputs(gen, a, 20, 1536)
+    flash_decode_cross(*args, 20, 1500)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = flash_decode_cross(*args, 20, 1500)
+    for t, fresh in zip(args, _k9_inputs(gen, a, 20, 1536)):
+        t.copy_(fresh)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, flash_decode_cross(*args, 20, 1500))
 
 
 @pytest.mark.parametrize("bits", [8, 4])

@@ -68,6 +68,22 @@ def test_probe_tool_loads_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+@pytest.mark.parametrize("tool", ["time_k3.py", "time_k8.py", "time_k6_k9.py"])
+def test_timing_tools_load_no_jax(tool):
+    """The kernel timing tools, with `chip_smoke.py` that their `main`
+    imports, load neither JAX nor the JAX package."""
+    code = ("import importlib.util, sys; sys.path.insert(0, '.'); "
+            f"spec = importlib.util.spec_from_file_location('tool', 'tools/{tool}'); "
+            "spec.loader.exec_module(importlib.util.module_from_spec(spec)); "
+            "import chip_smoke; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
+            "'whisper_at_tpu')]; print(bad); sys.exit(1 if bad else 0)")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120, cwd=root)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 class _OnCard(torch.Tensor):
     """A CPU tensor that reports itself on the card: it shows what a kernel
     wrapper does with a CUDA tensor on a machine without one."""

@@ -133,6 +133,21 @@ def test_stream_plain_equals_k4_plain_at_a_half_stage(a, ta, ta_pad):
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("a, s, split", [(24, 1500, (1, 12)), (1, 1500, (6, 2)),
+                                         (1, 1, (1, 1)), (1, 129, (2, 1)), (2, 2048, (8, 2)),
+                                         (5, 700, (3, 2)), (26, 1500, (1, 12))])
+def test_flash_decode_plan_fills_one_wave(a, s, split):
+    """K9's split of the positions: one run a (head, audio row) block at
+    batch 24 (480 blocks in one 528-block wave), six of two stages at one
+    audio row; no run is empty and the runs cover every stage."""
+    from whisper_at_tpu_torch.ops.flash_decode import CHUNK, MAX_SPLIT, plan
+
+    n_split, per = plan(a, 20, s, 528)
+    assert (n_split, per) == split
+    n_stages = -(-s // CHUNK)
+    assert 1 <= n_split <= MAX_SPLIT and (n_split - 1) * per < n_stages <= n_split * per
+
+
 def test_flash_decode_matches_jax_kernel():
     """K9 against the JAX kernel at bh = 32, s = 700 (700 % 512 != 0: the
     tail is masked), at the JAX test's tolerance (atol 2e-5). The JAX

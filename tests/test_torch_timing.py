@@ -300,6 +300,27 @@ def test_find_alignment_batched_equals_jax(pair, tokenizer, jax_tokenizer, mels)
         assert [(w.word, w.start, w.end) for w in o] == [(w.word, w.start, w.end) for w in a]
 
 
+def test_find_alignment_batched_forwards_exactly_s_max_rows(pair, tokenizer, mels,
+                                                          monkeypatch):
+    """The alignment forward gets the token rows at their longest length,
+    s_max, not padded to a bucket: the port's eager forward has no compile
+    to bound."""
+    _, tm = pair
+    texts = [tokenizer.encode(t) for t in TEXTS]
+    shapes = []
+
+    def recording(decoder, toks, *args, **kwargs):
+        shapes.append(tuple(toks.shape))
+        return decoder_forward_with_qk(decoder, toks, *args, **kwargs)
+
+    monkeypatch.setattr(timing, "decoder_forward_with_qk", recording)
+    timing.find_alignment_batched(tm, tokenizer, texts, torch.from_numpy(mels),
+                                  [3000, 3000, 1700])
+    s_max = max(len(t) for t in texts) + len(tokenizer.sot_sequence) + 2
+    assert shapes == [(2, s_max)]  # the empty row stays out of the batch
+    assert s_max % 64 != 0
+
+
 # --------------------------------------------------------------------------- #
 # punctuation merge and word carving
 # --------------------------------------------------------------------------- #

@@ -10,6 +10,7 @@ probabilities agree to 1e-5.
 
 import numpy as np
 import pytest
+import torch
 
 import whisper_at_tpu as jax_wat
 from whisper_at_tpu.models.dims import ModelDimensions as JaxDims
@@ -86,3 +87,42 @@ def test_sequential_transcribe_equals_jax(pair, audio_65s, word_timestamps):
     out = wat.transcribe(tm, audio_65s, **kw)
     _assert_same_result(out, ref, words=word_timestamps)
     assert [s["seek"] for s in out["segments"]] == [s["seek"] for s in ref["segments"]]
+
+
+@pytest.mark.parametrize("budget_rows", [1, 2, 3, 5])
+def test_add_word_timestamps_many_chunks_rows_by_their_own_lengths(pair, monkeypatch,
+                                                                   budget_rows):
+    """Windows go to the alignment forward in order of their rows' own
+    lengths (text + the sot sequence, <|notimestamps|> and eot), each chunk
+    as many as fit QK_CHUNK_BYTES at its longest row, without rounding the
+    rows up to a bucket. A budget of a few rows of the longest length forces
+    splits."""
+    from whisper_at_tpu_torch import timing
+    from whisper_at_tpu_torch.tokenizer import get_tokenizer
+
+    _, tm = pair
+    tokenizer = get_tokenizer(True, language="en", task="transcribe")
+    n_text = [5, 61, 62, 30, 61, 3, 100]
+    jobs = [([dict(seek=0, start=0.0, end=1.0, tokens=list(range(100, 100 + k)))],
+             torch.zeros(80, 3000), 3000) for k in n_text]
+    sl = len(tokenizer.sot_sequence)
+    n_sel = int(np.asarray(tm.alignment_heads, bool).sum())
+    per_row = n_sel * tm.dims.n_audio_ctx * 4
+    row_lens = [k + sl + 2 for k in n_text]
+    monkeypatch.setattr(timing, "QK_CHUNK_BYTES", per_row * max(row_lens) * budget_rows)
+    chunks = []
+
+    def recording(model, tokenizer, text_tokens_list, *args, **kwargs):
+        chunks.append([len(t) for t in text_tokens_list])
+        return [[] for _ in text_tokens_list]
+
+    monkeypatch.setattr(timing, "find_alignment_batched", recording)
+    timing.add_word_timestamps_many(window_jobs=jobs, model=tm, tokenizer=tokenizer)
+    # every window once, in order of its own length
+    assert [k for chunk in chunks for k in chunk] == sorted(n_text)
+    for chunk in chunks:
+        assert per_row * (max(chunk) + sl + 2) * len(chunk) <= timing.QK_CHUNK_BYTES
+    # greedy: no chunk could have taken the next window too
+    for chunk, following in zip(chunks, chunks[1:]):
+        grown = chunk + following[:1]
+        assert per_row * (max(grown) + sl + 2) * len(grown) > timing.QK_CHUNK_BYTES

@@ -32,14 +32,14 @@ def _ours() -> list:
 
 
 def load(root: str) -> dict:
-    """Import root's package and build its kernels; returns its modules."""
+    """Import root's package (every ops module) and build its kernels;
+    returns its modules."""
     for name in _ours():
         del sys.modules[name]
     sys.path.insert(0, root)
     try:
         pkg = importlib.import_module(PKG)
-        for mod in ("ops.cuda", "ops.enc_mlp", "ops.kv_quant"):
-            importlib.import_module(f"{PKG}.{mod}")
+        importlib.import_module(f"{PKG}.ops")
     finally:
         sys.path.remove(root)
     where = os.path.dirname(os.path.dirname(os.path.abspath(pkg.__file__)))

@@ -4,7 +4,8 @@
 // distributed shared memory, and the wgmma descriptors, fences and the
 // m64n128k16 product with both operands in shared memory, and programmatic
 // dependent launch. Used by attn_sm90.cuh (K1, K7), gemm_sm90.cuh (K2, K3),
-// cross_decode_stream.cu (K10), cross_decode.cu (K4) and fused_mlp.cu (K8).
+// cross_decode_stream.cu (K10), cross_decode.cu (K4), fused_mlp.cu (K8),
+// dtw.cu (K6) and flash_decode.cu (K9).
 //
 // Shared memory is addressed by 32-bit shared-window addresses (smem_u32).
 // The tensor maps are encoded on the host per call, by the driver's

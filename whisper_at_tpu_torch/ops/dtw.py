@@ -1,9 +1,13 @@
 """K6: dynamic time warping for word timing, and its host backtrace.
 
 Replaces `whisper_at_tpu/ops/dtw_pallas.py::_dtw_device` (Pallas). The
-CUDA source is `csrc/dtw.cu`: one block per cost matrix of a batch, one
-thread per DP row, the DP running over anti-diagonals with three diagonals
-of cost in shared memory. Its header gives the bound and the cell rules.
+CUDA source is `csrc/dtw.cu`: one block per cost matrix of a batch (two
+blocks of a cluster past eight warps of rows), a lane per DP row with its
+costs in registers, the up neighbour passed between lanes by shuffles and
+between warps through shared-memory rings under mbarriers, the inputs
+staged ahead in TMA boxes. Its header gives the bound, the cell rules and
+the design. Rows of x whose length is not a multiple of 4 are padded here
+for the copy engine (the padding is never read).
 
 The trace comes back skewed, int8 [G, N_max + M + 1, N_max + 1] with
 trace[g, i + j, i] the step into cell (i, j) of matrix g: 0 diagonal, 1 up,
@@ -22,10 +26,13 @@ from .cuda import CudaKernel, ptr, require_cuda, stream_handle
 
 KERNEL = CudaKernel(
     "dtw", "dtw.cu", "dtw_trace",
-    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     replaces="whisper_at_tpu/ops/dtw_pallas.py:75",
 )
-MAX_ROWS = 511  # N_max: one block of at most 512 threads (csrc/dtw.cu)
+MAX_ROWS = 511  # N_max: at most 16 warps, a lane a row (csrc/dtw.cu)
+# steps between a warp's hand-overs of its last row to the next warp (8, 16
+# or 32; tools/time_k6_k9.py times each, PERF.md section 6)
+HANDOVER = 16
 ACC_TYPES = (torch.float32, torch.float64)
 
 
@@ -82,9 +89,11 @@ def dtw_trace(x: torch.Tensor, n: torch.Tensor,
     require_cuda(n, torch.int32, "n", 1)
     if not 1 <= n_max <= MAX_ROWS or m < 1:
         raise ValueError(f"x [G, N_max, M] needs 1 <= N_max <= {MAX_ROWS} and M >= 1")
+    if m % 4:  # the copy engine's row stride is a whole 16-byte unit
+        x = torch.nn.functional.pad(x, (0, 4 - m % 4))
     trace = torch.empty((g, n_max + m + 1, n_max + 1), dtype=torch.int8, device=x.device)
-    KERNEL.launch(ptr(x), ptr(n), ptr(trace), g, n_max, m, int(dtype == torch.float64),
-                  stream_handle(x.device))
+    KERNEL.launch(ptr(x), ptr(n), ptr(trace), g, n_max, m, x.shape[2],
+                  int(dtype == torch.float64), HANDOVER, stream_handle(x.device))
     return trace
 
 

@@ -13,25 +13,42 @@ feed it at one query row per head. The wrapper maps q's rows to heads: row
 bh is (audio row bh // H, head bh % H). The JAX function's layout (codes
 [BH, 64, S] for K, [BH, S, 64] for V) differs only in where the numbers lie.
 
-The CUDA source is `csrc/flash_decode.cu`: a partial kernel over (split of
-S, head tile, audio row) writes (m, l, acc) per split to scratch allocated
-here, and a combine kernel merges the splits in a fixed order; one launch
-count per call.
+The CUDA source is `csrc/flash_decode.cu`: a block per (head, audio row,
+run of the positions), one TMA ring of K and V stages, four consumer warps
+each with its own online (m, l, acc), the warps merged in order and the runs
+merged in rank order across a thread-block cluster, in one launch (`plan`
+splits the positions so that the grid fills the card). Its header gives the
+bound.
 """
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
+from .cross_decode import wave_slots
 from .cuda import CudaKernel, ptr, require_cuda, stream_handle
 
 KERNEL = CudaKernel(
     "flash_decode", "flash_decode.cu", "flash_decode_bf16",
-    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     replaces="whisper_at_tpu/ops/flash_decode.py:89",
 )
 HEAD_DIM = 64
+CHUNK = 128    # positions of a stage (csrc/flash_decode.cu)
+MAX_SPLIT = 8  # runs of the positions: blocks of a cluster
+
+
+def plan(a: int, n_head: int, s: int, slots: int) -> Tuple[int, int]:
+    """(n_split, per_split): the stages of CHUNK positions covering s split
+    into n_split runs of per_split, one a block of a cluster, as many as one
+    wave of `slots` blocks allows (up to MAX_SPLIT), none empty, as
+    `cross_decode.plan` does for K4. Large-v1 at batch 24 (480 blocks) takes
+    one run; a single audio row, 6 runs of two stages."""
+    n_stages = -(-s // CHUNK)
+    want = max(1, min(n_stages, MAX_SPLIT, slots // (a * n_head)))
+    per = -(-n_stages // want)
+    return -(-n_stages // per), per
 
 
 def flash_decode_cross_plain(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
@@ -74,11 +91,11 @@ def flash_decode_cross(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
         require_cuda(t, torch.float32, name, 3)
         if tuple(t.shape) != (a, n_head, s_pad):
             raise ValueError(f"{name} must be [{a}, {n_head}, {s_pad}]")
-    n_split = KERNEL.c_function("flash_decode_splits", [ctypes.c_int])(s)
-    part_ml = torch.empty((a * n_head, n_split, 2), device=q.device, dtype=torch.float32)
-    part_acc = torch.empty((a * n_head, n_split, HEAD_DIM), device=q.device,
-                           dtype=torch.float32)
+    if s_pad % 4:
+        raise ValueError(f"S_pad {s_pad} is not a multiple of 4 (the scales' rows must be "
+                         f"whole 16-byte units for the copy engine)")
+    n_split, per = plan(a, n_head, s, wave_slots(q.device.index or 0))
     out = torch.empty_like(q)
-    KERNEL.launch(ptr(q), ptr(kq), ptr(ks), ptr(vq), ptr(vs), ptr(out), ptr(part_ml),
-                  ptr(part_acc), a, n_head, s_pad, s, stream_handle(q.device))
+    KERNEL.launch(ptr(q), ptr(kq), ptr(ks), ptr(vq), ptr(vs), ptr(out), a, n_head, s_pad, s,
+                  n_split, per, stream_handle(q.device))
     return out

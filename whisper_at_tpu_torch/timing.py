@@ -174,9 +174,9 @@ def find_alignment_batched(model, tokenizer: Tokenizer, text_tokens_list: List[L
     s_max = max(len(r) for r in rows)
     if s_max > model.dims.n_text_ctx:
         raise ValueError(f"window token sequence {s_max} exceeds n_text_ctx")
-    # padded to a multiple of 64, as the JAX package buckets it
-    s_pad = min(-(-s_max // 64) * 64, model.dims.n_text_ctx)
-    toks = np.full((len(live), s_pad), tokenizer.eot, np.int64)
+    # rows at exactly s_max: the JAX package pads to 64-row buckets to bound
+    # its compiles, which an eager forward has no use for
+    toks = np.full((len(live), s_max), tokenizer.eot, np.int64)
     for j, r in enumerate(rows):
         toks[j, :len(r)] = r
     dev = model.device
@@ -301,19 +301,18 @@ def add_word_timestamps_many(*, window_jobs: List[Tuple], model, tokenizer: Toke
     tok_lists = [[t for seg in per_seg for t in seg] for per_seg in seg_tok_lists]
 
     # pack rows under a byte budget for the fp32-costed qk capture
-    # [G, n_sel, s_pad, n_audio_ctx]; a chunk pads to its longest row's
-    # bucket, so rows go in bucket order and are costed at the chunk's max
+    # [G, n_sel, s_max, n_audio_ctx]; a chunk pads to its longest row, so
+    # rows go in length order and are costed at the chunk's max
     sl = len(tokenizer.sot_sequence)
     n_sel = max(int(np.asarray(model.alignment_heads, bool).sum()), 1)
     per_s_bytes = n_sel * model.dims.n_audio_ctx * 4
-    buckets = [min(-(-(len(t) + sl + 2) // 64) * 64, model.dims.n_text_ctx)
-               for t in tok_lists]
+    row_lens = [len(t) + sl + 2 for t in tok_lists]
     chunks, cur, cur_max = [], [], 0
-    for i in sorted(range(len(buckets)), key=buckets.__getitem__):
-        new_max = max(cur_max, buckets[i])
+    for i in sorted(range(len(row_lens)), key=row_lens.__getitem__):
+        new_max = max(cur_max, row_lens[i])
         if cur and per_s_bytes * new_max * (len(cur) + 1) > QK_CHUNK_BYTES:
             chunks.append(cur)
-            cur, new_max = [], buckets[i]
+            cur, new_max = [], row_lens[i]
         cur.append(i)
         cur_max = new_max
     if cur:
