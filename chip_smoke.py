@@ -356,14 +356,14 @@ def k6_step_ns() -> dict:
     """The latency of one step of K6's dependent chain on the card, in ns,
     by sum type, along a row (the cost feeds the next step's compares and
     add) and across rows (and a shuffle from lane l - 1 before them): one
-    warp runs STEP_ITERS such steps (`dtw_step_clocks` in csrc/dtw.cu),
+    warp runs STEP_ITERS such steps (`dtw_step_chain` in csrc/dtw.cu),
     timed by CUDA events. Returns {(dtype, crosses_rows): ns}."""
     from whisper_at_tpu_torch.ops import dtw
 
-    fn = dtw.KERNEL.c_function("dtw_step_clocks", [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+    fn = dtw.KERNEL.c_function("dtw_step_chain", [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
                                + [ctypes.c_void_p])
     seed = torch.randn(128, device="cuda")
-    out = torch.zeros(2, dtype=torch.int64, device="cuda")
+    out = torch.zeros(1, dtype=torch.int64, device="cuda")
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     ns = {}
     for acc in (torch.float64, torch.float32):
@@ -372,7 +372,7 @@ def k6_step_ns() -> dict:
                 rc = fn(ctypes.c_void_p(seed.data_ptr()), ctypes.c_void_p(out.data_ptr()),
                         STEP_ITERS, int(acc == torch.float64), int(cross), stream)
                 if rc:
-                    raise RuntimeError(f"dtw_step_clocks: CUDA error {rc}")
+                    raise RuntimeError(f"dtw_step_chain: CUDA error {rc}")
             ns[(acc, cross)] = time_ms(run, 3, 1) * 1e6 / STEP_ITERS
     return ns
 

@@ -434,19 +434,6 @@ def test_dtw_kernel_at_warp_and_handover_edges(dev, n_max, m, dtype):
     assert torch.equal(out, ref), int((out != ref).sum())
 
 
-@pytest.mark.parametrize("handover", [8, 16, 32])
-def test_dtw_kernel_every_handover_length(dev, monkeypatch, handover):
-    """Each hand-over length the C entry takes gives the same trace."""
-    from whisper_at_tpu_torch.ops import dtw
-
-    monkeypatch.setattr(dtw, "HANDOVER", handover)
-    rng = np.random.default_rng(handover)
-    x = torch.from_numpy(_dtw_inputs(rng, 2, 130, 700)).to(dev)
-    n = torch.tensor([130, 77], dtype=torch.int32, device=dev)
-    for dtype in (torch.float32, torch.float64):
-        assert torch.equal(dtw.dtw_trace(x, n, dtype), dtw.dtw_trace_plain(x, n, dtype))
-
-
 def test_transcribe_batched_runs_through_every_kernel(dev):
     """With word timestamps and the int8 options the call reaches K1-K4 and
     K6, and no int4 entry."""

@@ -9,6 +9,9 @@ in Ta halves, the JAX K9 takes [BH, 64, S] / [BH, S, 64] codes; the port's
 kernels take K3's row-major layout (int4 packed by `pack4`). fp32.
 """
 
+import os
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -146,6 +149,19 @@ def test_flash_decode_plan_fills_one_wave(a, s, split):
     assert (n_split, per) == split
     n_stages = -(-s // CHUNK)
     assert 1 <= n_split <= MAX_SPLIT and (n_split - 1) * per < n_stages <= n_split * per
+
+
+@pytest.mark.parametrize("name", ["CHUNK", "MAX_SPLIT", "BLOCKS_PER_SM"])
+def test_flash_decode_plan_constants_are_its_kernels(name):
+    """The stage length, the cluster's largest size and the blocks an SM
+    that K9's `plan` counts on are the ones csrc/flash_decode.cu declares."""
+    from whisper_at_tpu_torch.ops import flash_decode
+
+    source = os.path.join(os.path.dirname(flash_decode.__file__), os.pardir, "csrc",
+                          "flash_decode.cu")
+    with open(source) as f:
+        found = re.findall(rf"constexpr int {name} = (\d+);", f.read())
+    assert [int(v) for v in found] == [getattr(flash_decode, name)]
 
 
 def test_flash_decode_matches_jax_kernel():

@@ -14,9 +14,9 @@ chunks before the alignment rows lost their 64-row padding ([4, 97, 1500]:
 four windows a chunk) and after ([6, 97, 1500]), and at the longest text a
 window holds ([1, 448, 1500]), each beside its chain floor
 (`chip_smoke.k6_floor_ms`, from this package's measured step latency);
-this package's K6 also with each other hand-over length it takes, and at
-M = 500 beside 1500 for 31, 97 and 448 rows: the slope is the time of a
-step, what is left at M = 0 the warps' start lags and fixed costs.
+this package's K6 also at M = 500 beside 1500 for 31, 97 and 448 rows: the
+slope is the time of a step, what is left at M = 0 the warps' start lags
+and fixed costs.
 K9 (split-S flash decode) is timed cold, as `chip_smoke.k9_points` does:
 at batch 24 and at one audio row, eager over K/V sets used in turn and in a
 CUDA graph. Before the timing, the packages' K6 traces are compared bit
@@ -120,9 +120,7 @@ def main(argv=None) -> int:
         for label, mods in order:
             activate(mods)
             dtw = mods[PKG + ".ops.dtw"]
-            default = getattr(dtw, "HANDOVER", None)  # the parent's kernel has none
-            print(f"-- {label}" + (f" (hand-over {default} steps)" if default else ""),
-                  flush=True)
+            print(f"-- {label}", flush=True)
             for point, (x, n) in k6.items():
                 for acc in (torch.float64, torch.float32):
                     ms = chip_smoke.time_ms(lambda: dtw.dtw_trace(x, n, acc), 20)
@@ -143,17 +141,6 @@ def main(argv=None) -> int:
                           f"{ms[chip_smoke.DTW_FRAMES]:.4f} at {chip_smoke.DTW_FRAMES}: "
                           f"{step * 1e6:.2f} ns a step, {ms[500] - 500 * step:.4f} ms at M = 0 "
                           f"(the warps' start lags and the rest) [{card}]", flush=True)
-            if label == "this":  # the hand-over lengths the kernel takes
-                for handover in (8, 32):
-                    dtw.HANDOVER = handover
-                    for point, (x, n) in k6.items():
-                        for acc in (torch.float64, torch.float32):
-                            ms = chip_smoke.time_ms(lambda: dtw.dtw_trace(x, n, acc), 20)
-                            key = (f"K6 {list(x.shape)} {str(acc).split('.')[-1]} ({point}) "
-                                   f"handover {handover}")
-                            seen.setdefault(key, {}).setdefault(label, []).append(ms)
-                            print(f"{key}: {ms:.4f} ms [{card}]", flush=True)
-                dtw.HANDOVER = default
             for a, p in chip_smoke.k9_points(randn, kv).items():
                 for mode in ("ms", "graph"):
                     key = f"K9 A={a} cold {'eager' if mode == 'ms' else 'graph'}"

@@ -33,10 +33,10 @@
 //    the left (i, j-1) its own previous cost. No block barrier runs per step.
 //  - Warps are chained, not barriered: lane 31 of warp w writes its costs
 //    into a ring of RING columns in warp w + 1's shared memory and arrives
-//    on an mbarrier every HANDOVER steps; warp w + 1 waits on it (try_wait,
+//    on an mbarrier every H = 16 steps; warp w + 1 waits on it (try_wait,
 //    which suspends instead of spinning) before it reads a hand-over, and
 //    publishes what it has read in a count that keeps warp w from
-//    overwriting an unread column. Warp w + 1 runs about HANDOVER + 32 steps
+//    overwriting an unread column. Warp w + 1 runs about H + 32 steps
 //    behind warp w. Across the two blocks of a cluster the same goes through
 //    distributed shared memory at cluster scope. Warps whose rows are all
 //    past n[g] only write their trace rows' -1.
@@ -62,15 +62,19 @@
 // logic; the next block's loads and the previous block's trace stores spread
 // over the steps. One row a lane: with R rows a lane the steps shrink to
 // M + N / R but each step's chain grows by R - 1 compare-select-adds, a loss
-// where M >> N. The hand-over lengths are timed by tools/time_k6_k9.py
-// (PERF.md section 6).
+// where M >> N. Hand-overs of 8 and of 32 steps (float64, tools/time_k6_k9.py
+// while the length was a launch argument): 0.1398-0.1407 and 0.1328-0.1329 ms
+// at [6, 97, 1500], 0.2917-0.2925 and 0.2551-0.2566 ms at [1, 448, 1500],
+// against 0.1314-0.1324 and 0.2538-0.2547 ms with H = 16.
 #include "hopper.cuh"
 
 namespace {
 
 constexpr int RING = 128;   // columns of a warp's hand-over ring
+constexpr int H = 16;       // steps between a warp's hand-overs to the next
 constexpr int TILE = 1024;  // floats of a staged tile: 32 rows x 32 columns
 constexpr unsigned FULL = 0xffffffffu;
+static_assert(RING % H == 0 && 32 % H == 0, "a block of 32 steps is whole hand-overs");
 
 // Between the warps of a matrix, which may lie in two blocks of a cluster:
 // a warp's hand-overs are written into its consumer's block, its
@@ -243,7 +247,7 @@ struct Warp {
 // indexed by the producing lane's step s (column s - 31), so a hand-over's
 // slots are contiguous; barrier b of RING / H counts the producer's
 // hand-overs of steps b H .. b H + H - 1 (mod RING).
-template <typename T, int C, int H, Mode MODE, bool CROSS_IN, bool CROSS_OUT>
+template <typename T, int C, Mode MODE, bool CROSS_IN, bool CROSS_OUT>
 __device__ __forceinline__ void steps(Wave<T>& v, const Warp& a, int s0, const float* xa,
                                       const float* xb, int qcol, const T* in_edge,
                                       uint32_t (&tb)[C / 4]) {
@@ -336,7 +340,7 @@ constexpr int NSLOT = D + 2;
 // writes, the tiles [NSLOT][32][32] fp32 (TMA boxes), the tiles' barriers
 // [NSLOT] and the ring's [RING / H], and the back-pressure count its
 // consumer writes
-template <typename T, int H>
+template <typename T>
 __host__ __device__ constexpr size_t smem_bytes(int warps) {
   return (size_t)warps * (RING * sizeof(T) + NSLOT * TILE * sizeof(float) +
                           8 * (NSLOT + RING / H) + sizeof(int));
@@ -346,7 +350,7 @@ __host__ __device__ constexpr size_t smem_bytes(int warps) {
 // The warp's whole wave, in hand-overs of H steps (computed C = 32 at a
 // time). CROSS_IN / CROSS_OUT: its producer / consumer lies in the other
 // block of the cluster.
-template <typename T, int H, bool CROSS_IN, bool CROSS_OUT>
+template <typename T, bool CROSS_IN, bool CROSS_OUT>
 __device__ __forceinline__ void wave(const Warp& a, const CUtensorMap* xmap) {
   constexpr int C = 32;
   const int l = a.l, k0 = a.k0, M = a.M;
@@ -379,11 +383,11 @@ __device__ __forceinline__ void wave(const Warp& a, const CUtensorMap* xmap) {
     }
     uint32_t tb[C / 4];  // the steps' trace bytes
     if (s0 >= 32 && s0 + C - 1 <= M)
-      steps<T, C, H, INTERIOR, CROSS_IN, CROSS_OUT>(v, a, s0, xa, xb, s0, in_edge, tb);
+      steps<T, C, INTERIOR, CROSS_IN, CROSS_OUT>(v, a, s0, xa, xb, s0, in_edge, tb);
     else if (a.warp0 && s0 == 0)
-      steps<T, C, H, FIRST, CROSS_IN, CROSS_OUT>(v, a, s0, xa, xb, s0, in_edge, tb);
+      steps<T, C, FIRST, CROSS_IN, CROSS_OUT>(v, a, s0, xa, xb, s0, in_edge, tb);
     else
-      steps<T, C, H, EDGE, CROSS_IN, CROSS_OUT>(v, a, s0, xa, xb, s0, in_edge, tb);
+      steps<T, C, EDGE, CROSS_IN, CROSS_OUT>(v, a, s0, xa, xb, s0, in_edge, tb);
     store_trace<C>(tb, a.tg, s0, k0, a.i, a.W, a.K);
     st_release<CROSS_IN>(a.out_cons, min(s0 + C, M + 1), a.consumer && l == 0);
   }
@@ -391,7 +395,7 @@ __device__ __forceinline__ void wave(const Warp& a, const CUtensorMap* xmap) {
 
 // CL: the blocks of a cluster that share one matrix, MAXW warps or fewer
 // each (up to 8 warps one block, up to 16 two, on two SMs)
-template <typename T, int H, int CL>
+template <typename T, int CL>
 __global__ void __launch_bounds__(MAXW * 32, 1)
     dtw_kernel(const __grid_constant__ CUtensorMap xmap, const int* __restrict__ n,
                int8_t* __restrict__ trace, int N_max, int M, int K, int W) {
@@ -451,11 +455,11 @@ __global__ void __launch_bounds__(MAXW * 32, 1)
     if (cross_out) a.out_edge = map_rank(a.out_edge, rc), a.out_full = map_rank(a.out_full, rc);
     if (cross_in) a.out_cons = map_rank(a.out_cons, rp);
     if (CL > 1 && cross_out)
-      wave<T, H, false, true>(a, &xmap);
+      wave<T, false, true>(a, &xmap);
     else if (CL > 1 && cross_in)
-      wave<T, H, true, false>(a, &xmap);
+      wave<T, true, false>(a, &xmap);
     else
-      wave<T, H, false, false>(a, &xmap);
+      wave<T, false, false>(a, &xmap);
   }
   if (CL > 1) {  // no block leaves while another may still write to it
     cluster_arrive();
@@ -463,11 +467,11 @@ __global__ void __launch_bounds__(MAXW * 32, 1)
   }
 }
 
-template <typename T, int H, int CL>
+template <typename T, int CL>
 int launch_cfg(const CUtensorMap& xmap, const void* n, void* trace, int G, int N_max, int M,
                int bw, cudaStream_t stream) {
-  auto kernel = dtw_kernel<T, H, CL>;
-  const size_t smem = smem_bytes<T, H>(bw);
+  auto kernel = dtw_kernel<T, CL>;
+  const size_t smem = smem_bytes<T>(bw);
   static size_t configured = 0;
   if (smem > configured) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -491,41 +495,30 @@ int launch_cfg(const CUtensorMap& xmap, const void* n, void* trace, int G, int N
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
-static_assert(smem_bytes<double, 8>(MAXW) <= 227 * 1024, "a block's rings and tiles fit");
+static_assert(smem_bytes<double>(MAXW) <= 227 * 1024, "a block's rings and tiles fit");
 
 // up to MAXW warps a matrix: one block; more: two blocks of a cluster
-template <typename T, int H>
+template <typename T>
 int launch(const CUtensorMap& xmap, const void* n, void* trace, int G, int N_max, int M,
            cudaStream_t stream) {
   const int nwarps = (N_max + 1 + 31) / 32;
   return nwarps <= MAXW
-             ? launch_cfg<T, H, 1>(xmap, n, trace, G, N_max, M, nwarps, stream)
-             : launch_cfg<T, H, 2>(xmap, n, trace, G, N_max, M, (nwarps + 1) / 2, stream);
-}
-
-template <typename T>
-int launch_chunk(const CUtensorMap& xmap, const void* n, void* trace, int G, int N_max, int M,
-                 int chunk, cudaStream_t stream) {
-  switch (chunk) {
-    case 8: return launch<T, 8>(xmap, n, trace, G, N_max, M, stream);
-    case 16: return launch<T, 16>(xmap, n, trace, G, N_max, M, stream);
-    case 32: return launch<T, 32>(xmap, n, trace, G, N_max, M, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+             ? launch_cfg<T, 1>(xmap, n, trace, G, N_max, M, nwarps, stream)
+             : launch_cfg<T, 2>(xmap, n, trace, G, N_max, M, (nwarps + 1) / 2, stream);
 }
 
 // The chain floor's unit: one warp runs `iters` steps of the recurrence
 // with the inputs off the chain, each step's cost feeding the next step's
 // compares; with SHUFFLE the up neighbour also comes from lane l - 1 as in
 // the kernel (a step that crosses rows), else from a register (a step along
-// a row). out[0]: the clocks lane 0 spent in the loop.
+// a row). The caller times the launch; out[0] is written only so that the
+// chain is not removed as dead code.
 template <typename T, bool SHUFFLE>
 __global__ void step_chain(const float* __restrict__ seed, long long* __restrict__ out,
                            int iters) {
   const int l = threadIdx.x;
   T c = seed[l], up_prev = seed[32 + l];
   const T ext = seed[64 + l], xv = seed[96 + l];
-  const long long t0 = clock64();
   for (int it = 0; it < iters; ++it) {
     T up = ext;
     if (SHUFFLE) {
@@ -537,17 +530,16 @@ __global__ void step_chain(const float* __restrict__ seed, long long* __restrict
     up_prev = up;
     c = xv + best;
   }
-  const long long t1 = clock64();
-  if (l == 0) out[0] = t1 - t0;
-  if (c == static_cast<T>(-1.25e-7)) out[1] = 1;  // keeps the chain live
+  if (c == static_cast<T>(-1.25e-7)) out[0] = 1;  // keeps the chain live
 }
 
 }  // namespace
 
-// seed [128] fp32, out [2] int64: the clocks of `iters` dependent steps of
-// one warp in the sum type (double_acc), crossing rows by a shuffle or not.
-extern "C" int dtw_step_clocks(const void* seed, void* out, int iters, int double_acc,
-                               int shuffle, void* stream) {
+// seed [128] fp32, out [1] int64: `iters` dependent steps of one warp in the
+// sum type (double_acc), crossing rows by a shuffle or not; the caller times
+// the launch.
+extern "C" int dtw_step_chain(const void* seed, void* out, int iters, int double_acc,
+                              int shuffle, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* sd = static_cast<const float*>(seed);
   long long* o = static_cast<long long*>(out);
@@ -566,10 +558,9 @@ extern "C" int dtw_step_clocks(const void* seed, void* out, int iters, int doubl
 // stride is a whole 16-byte unit; columns >= M are not read); n [G] int32
 // (counts past N_max act as N_max); trace [G, N_max + M + 1, N_max + 1]
 // int8. 1 <= N_max <= 511 (at most 16 warps, one block a matrix), M >= 1.
-// double_acc selects the type the costs are summed in; handover (8, 16 or
-// 32) the steps between hand-overs of a warp.
+// double_acc selects the type the costs are summed in.
 extern "C" int dtw_trace(const void* x, const void* n, void* trace, int G, int N_max, int M,
-                         int ld, int double_acc, int handover, void* stream) {
+                         int ld, int double_acc, void* stream) {
   if (G < 1 || N_max < 1 || N_max > 511 || M < 1 || ld < M || ld % 4)
     return static_cast<int>(cudaErrorInvalidValue);
   EncodeTiled fn;
@@ -580,6 +571,6 @@ extern "C" int dtw_trace(const void* x, const void* n, void* trace, int G, int N
                            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B);
   if (rc != 0) return rc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return double_acc ? launch_chunk<double>(xmap, n, trace, G, N_max, M, handover, st)
-                    : launch_chunk<float>(xmap, n, trace, G, N_max, M, handover, st);
+  return double_acc ? launch<double>(xmap, n, trace, G, N_max, M, st)
+                    : launch<float>(xmap, n, trace, G, N_max, M, st);
 }

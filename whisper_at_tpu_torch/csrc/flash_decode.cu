@@ -52,6 +52,7 @@ constexpr int CHUNK = 128;               // positions of a stage
 constexpr int PW = CHUNK / NW;           // positions of a stage a consumer warp
 constexpr int RING = 3;                  // stages in flight
 constexpr int MAX_SPLIT = 8;             // blocks of a cluster
+constexpr int BLOCKS_PER_SM = 4;         // ops/flash_decode.py's plan counts on it
 constexpr int STATE = 2 + DH;            // m, l, acc[64]
 constexpr float NEG_BIG = -1e30f;
 
@@ -68,13 +69,13 @@ constexpr int XST_OFF = PW_OFF + 4 * NW * PW;
 constexpr int BAR_OFF = (XST_OFF + 4 * (MAX_SPLIT - 1) * STATE + 7) / 8 * 8;
 constexpr int SMEM = 1024 + BAR_OFF + 8 * (2 * RING + 1);  // 1024: alignment of the base
 static_assert(STRIDE % 1024 == 0, "stages keep the swizzle's alignment");
-static_assert(SMEM + 1024 <= 57 * 1024, "four blocks an SM");
+static_assert(BLOCKS_PER_SM * (SMEM + 1024) <= 228 * 1024, "BLOCKS_PER_SM blocks an SM");
 
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
 }
 
-__global__ void __launch_bounds__(THREADS, 4)
+__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
     flash_decode_kernel(const __grid_constant__ CUtensorMap kmap,
                         const __grid_constant__ CUtensorMap vmap,
                         const __grid_constant__ CUtensorMap ksmap,

@@ -26,13 +26,10 @@ from .cuda import CudaKernel, ptr, require_cuda, stream_handle
 
 KERNEL = CudaKernel(
     "dtw", "dtw.cu", "dtw_trace",
-    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     replaces="whisper_at_tpu/ops/dtw_pallas.py:75",
 )
 MAX_ROWS = 511  # N_max: at most 16 warps, a lane a row (csrc/dtw.cu)
-# steps between a warp's hand-overs of its last row to the next warp (8, 16
-# or 32; tools/time_k6_k9.py times each, PERF.md section 6)
-HANDOVER = 16
 ACC_TYPES = (torch.float32, torch.float64)
 
 
@@ -93,7 +90,7 @@ def dtw_trace(x: torch.Tensor, n: torch.Tensor,
         x = torch.nn.functional.pad(x, (0, 4 - m % 4))
     trace = torch.empty((g, n_max + m + 1, n_max + 1), dtype=torch.int8, device=x.device)
     KERNEL.launch(ptr(x), ptr(n), ptr(trace), g, n_max, m, x.shape[2],
-                  int(dtype == torch.float64), HANDOVER, stream_handle(x.device))
+                  int(dtype == torch.float64), stream_handle(x.device))
     return trace
 
 

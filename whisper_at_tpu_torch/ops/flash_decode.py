@@ -22,11 +22,11 @@ bound.
 """
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
 
-from .cross_decode import wave_slots
 from .cuda import CudaKernel, ptr, require_cuda, stream_handle
 
 KERNEL = CudaKernel(
@@ -37,6 +37,14 @@ KERNEL = CudaKernel(
 HEAD_DIM = 64
 CHUNK = 128    # positions of a stage (csrc/flash_decode.cu)
 MAX_SPLIT = 8  # runs of the positions: blocks of a cluster
+BLOCKS_PER_SM = 4  # the kernel's blocks on one streaming multiprocessor (csrc/flash_decode.cu)
+
+
+@functools.lru_cache(maxsize=None)
+def wave_slots(device_index: int) -> int:
+    """Blocks of K9 in one wave on the card: BLOCKS_PER_SM on each of its
+    streaming multiprocessors (528 on an H100 SXM)."""
+    return BLOCKS_PER_SM * torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def plan(a: int, n_head: int, s: int, slots: int) -> Tuple[int, int]:
