@@ -28,7 +28,7 @@ turn, eager and in CUDA graphs, at the greedy step and a beam step at
 batch 24 and at the sequential call's single audio row
 (`cross_decode_points`), each K4 point printed beside K10 on the same
 bytes, the bound, the split of the positions K4 chose and the kernel
-before its redesign as recorded (K4_BEFORE). Then it drives five paths of the port at
+before its redesign as recorded (K4_BEFORE). Then it drives the port's paths at
 large-v1 full width with random weights from a seeded generator over
 synthesized int16 audio, each with the kernels' launch counts reset just
 before and read just after, and checks its output:
@@ -45,6 +45,14 @@ before and read just after, and checks its output:
     =stream and `models.decoder.FUSED_MLP` (K7, K2, K3, K8-int8, K10; not
     K1 or K4), (b) the same switches with int4 cross K/V, bf16 weights and
     the int8 self cache (K7, K2, K3-int4, K8, K10-int4; not K4-int4);
+(10) the serving path: 72 files of 8-25 s through one
+    `TranscriptionService` (three batches of 24, half the files prefetched
+    to the card, the rest prefetched by its prep pool), token for token
+    against a direct `transcribe_many`, then two WAV POSTs to its HTTP front
+    end (K1-K4; `serving_check`);
+(11) live streaming: 8 sessions of one `StreamingService`, 90 s each in
+    250 ms blocks from their own threads, one with word timestamps (K1-K4,
+    K6; `streaming_check`);
 (9) the streaming probe: `tools/probe_dma_torch.py`'s `probe` at the JAX
     probe's defaults (512 MiB int8 in 1 MiB chunks, the same numpy draw):
     P1 and P2 (cp.async and TMA rings at depths 2, 4, 8), each bitwise
@@ -62,7 +70,9 @@ over K/V sets used in turn (`k9_points`, K9_BEFORE as recorded).
 Printed, in order: the card's name and power limit (nvidia-smi), the build
 time, one line per kernel check (K5 one per weight shape and row count),
 one line per path (throughput, launch counts, peak memory, the seek loop's
-window count) with its held kernel inputs, the headline's, the int4
+window count) with its held kernel inputs, the serving and streaming
+phases' throughput beside the headline's, latency percentiles and stage
+profiles (WHISPER_AT_TPU_SERVE_PROF, WHISPER_AT_TPU_STREAM_PROF), the int4
 call's, the beam call's and the two switches calls' throughput side by
 side, the probe's rows (GB/s and share of 3.35 TB/s), then a
 JSON line with every kernel's numbers and, last, the `{"ok": true,
@@ -137,6 +147,18 @@ PROBE_MB = 512
 PROBE_CHUNK_KB = 1024
 PROBE_ITERS = 5
 PROBE_ROWS = {"P1": "auto", "P2-cp": "cp-4", "P2-tma": "tma-4"}
+# the serving phase: 3 x BATCH files of 8-25 s (the JAX bench's serving row,
+# `bench.py:292`) through one TranscriptionService, every other one prefetched;
+# the fill window is long enough that only the window budget closes a batch
+SERVE_SECONDS = (8, 26)
+SERVE_FILL_S = 60.0
+SERVE_HTTP_FILES = 2
+# the streaming phase: 8 sessions of 90 s fed in 250 ms blocks from their own
+# threads, saturated, one with word timestamps (`bench.py:541-600`)
+STREAM_SESSIONS = 8
+STREAM_SECONDS = 90
+STREAM_BLOCK = 16000 // 4
+STREAM_WAIT_S = 0.15
 # K3 and K3-int4 before their redesign on gemm_sm90.cuh, as recorded (not
 # this run)
 K3_BEFORE = ("K3 1.0242-1.0435 ms, K3-int4 1.0131-1.0139 ms at [24, 1500, 1280], 0.0529-0.0545 "
@@ -1608,6 +1630,206 @@ def sequential_check(card: str, model) -> dict:
 
 
 @contextlib.contextmanager
+def decoded_rows():
+    """The rows each `DecodingTask.run` of the block decoded (a list, filled
+    as the block runs): windows plus the batch ladder's copies."""
+    from whisper_at_tpu_torch.decoding import DecodingTask
+
+    rows, run = [], DecodingTask.run
+
+    def counting(self, mel):
+        rows.append(mel.shape[0])
+        return run(self, mel)
+
+    DecodingTask.run = counting
+    try:
+        yield rows
+    finally:
+        DecodingTask.run = run
+
+
+def wav_body(pcm: np.ndarray) -> bytes:
+    """16-bit mono 16 kHz WAV bytes of int16 PCM."""
+    import io
+    import wave
+
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as wf:
+        wf.setnchannels(1)
+        wf.setsampwidth(2)
+        wf.setframerate(16000)
+        wf.writeframes(pcm.tobytes())
+    return buf.getvalue()
+
+
+def percentiles(xs) -> tuple:
+    xs = sorted(xs)
+    return xs[len(xs) // 2], xs[min(len(xs) - 1, int(len(xs) * 0.95))]
+
+
+def serving_check(card: str, model, headline_rate: float) -> dict:
+    """(10) The serving path: 3 x BATCH files of 8-25 s, every other one
+    prefetched to the card (`prefetch_audio_many`, the rest as int16 arrays
+    the service's prep pool prefetches), submitted together to one
+    `TranscriptionService`, which must form three batches of BATCH
+    one-window files; each result token for token against one direct
+    `transcribe_many` over the same inputs (the same batches reach the same
+    kernels). Then the HTTP front end on 127.0.0.1: two files POSTed as WAV,
+    each response's JSON equal to the in-process result, and /healthz.
+    Returns the launch counts."""
+    import json as _json
+    import threading
+    import urllib.request
+
+    import whisper_at_tpu_torch as wat
+    from whisper_at_tpu_torch.serving import TranscriptionService, _jsonable, make_http_server
+    from whisper_at_tpu_torch.transcribe import _serve_prof, transcribe_many
+
+    rng = np.random.default_rng(SEED)
+    seconds = [int(d) for d in rng.integers(*SERVE_SECONDS, size=3 * BATCH)]
+    audios = [synth_audio(d, SEED + 1 + i) for i, d in enumerate(seconds)]
+    opts = {k: v for k, v in HEADLINE_OPTS.items() if k != "max_batch"}
+    audio_s = sum(seconds)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    direct = transcribe_many(model, audios, max_batch=BATCH, **opts)
+    torch.cuda.synchronize()
+    direct_s = time.perf_counter() - t0
+
+    _serve_prof.snapshot()
+    inputs = list(audios)
+    inputs[::2] = wat.prefetch_audio_many(audios[::2])
+    if not all(isinstance(a, wat.PrefetchedAudio) and a.device.type == "cuda"
+               for a in inputs[::2]):
+        raise AssertionError("prefetch_audio_many did not give PrefetchedAudio on the card")
+    with TranscriptionService(model, max_batch=BATCH, max_wait_s=SERVE_FILL_S,
+                              **opts) as svc, decoded_rows() as rows:
+        def serve():
+            futures = [svc.submit(a) for a in inputs]
+            return [f.result(timeout=600) for f in futures]
+
+        results, wall, counts = run_counted(serve, HEADLINE_KERNELS)
+        stats = svc.stats()
+    prof = _serve_prof.snapshot()
+    if (stats["batches"], stats["max_batch_windows"], stats["failed"],
+            stats["completed"]) != (3, BATCH, 0, 3 * BATCH):
+        raise AssertionError(f"the service did not form three full batches: {stats}")
+    for i, (got, want) in enumerate(zip(results, direct)):
+        if [s["tokens"] for s in got["segments"]] != [s["tokens"] for s in want["segments"]] \
+                or got["text"] != want["text"]:
+            raise AssertionError(f"file {i}: the service's tokens differ from transcribe_many's")
+        check_segments(got, len(audios[i]), words=False)
+    p50, p95 = stats["latency_p50_s"], stats["latency_p95_s"]
+    rate = audio_s / wall
+    print(f"serving {SIZE}: {len(audios)} files of {min(seconds)}-{max(seconds)} s "
+          f"({audio_s} s audio, half prefetched) in {wall:.3f} s = {rate:.2f} audio-s/s "
+          f"({rate / headline_rate:.3f}x the headline's {headline_rate:.2f} in this process), "
+          f"{stats['windows'] / wall:.2f} windows/s, {stats['batches']} batches of "
+          f"{stats['max_batch_windows']} windows, decoded rows {sum(rows)} for "
+          f"{stats['windows']} windows, request latency p50 {p50:.3f} s p95 {p95:.3f} s; "
+          f"direct transcribe_many {direct_s:.3f} s; token-exact against it; launches "
+          f"{counts} [{card}]", flush=True)
+    print(f"serving stages (WHISPER_AT_TPU_SERVE_PROF): {_json.dumps(prof)} [{card}]",
+          flush=True)
+
+    with TranscriptionService(model, max_batch=BATCH, max_wait_s=0.05, **opts) as svc:
+        server = make_http_server(svc, "127.0.0.1", 0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        try:
+            for pcm in audios[:SERVE_HTTP_FILES]:
+                req = urllib.request.Request(base + "/v1/transcribe", data=wav_body(pcm),
+                                             headers={"Content-Type": "audio/wav"})
+                body = urllib.request.urlopen(req, timeout=600).read()
+                want = _json.dumps(_jsonable(transcribe_many(model, [pcm], **opts)[0]))
+                if _json.dumps(_json.loads(body)) != want:
+                    raise AssertionError("the HTTP response differs from the in-process result")
+            health = _json.loads(urllib.request.urlopen(base + "/healthz", timeout=60).read())
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=60)
+    if health["status"] != "ok" or health["completed"] != SERVE_HTTP_FILES:
+        raise AssertionError(f"/healthz: {health}")
+    print(f"serving HTTP: {SERVE_HTTP_FILES} WAV POSTs on 127.0.0.1, each JSON equal to the "
+          f"in-process transcribe_many; /healthz {health['completed']} completed, latency "
+          f"p50 {health['latency_p50_s']:.3f} s [{card}]", flush=True)
+    return counts
+
+
+def streaming_check(card: str, model, headline_rate: float) -> dict:
+    """(11) STREAM_SESSIONS sessions of one `StreamingService`, each fed
+    STREAM_SECONDS s of int16 in 250 ms blocks from its own thread as fast
+    as it goes, one with word timestamps (K6 runs in its thread while the
+    scheduler decodes). Every session ends with transcribe()'s dict, ordered
+    segments inside the audio and finite tags; no window fails. Returns the
+    launch counts."""
+    import json as _json
+    import threading
+
+    from whisper_at_tpu_torch.streaming import StreamingService, prof_snapshot
+
+    opts = {k: v for k, v in HEADLINE_OPTS.items() if k != "max_batch"}
+    waves = [synth_audio(STREAM_SECONDS, SEED + 100 + i) for i in range(STREAM_SESSIONS)]
+    prof_snapshot()
+    lats, results, errors = [], [None] * STREAM_SESSIONS, []
+    with StreamingService(model, max_batch=BATCH, max_wait_s=STREAM_WAIT_S) as service:
+        sessions = [service.open(word_timestamps=(i == 0), **opts)
+                    for i in range(STREAM_SESSIONS)]
+
+        def drive(i):
+            sess, wave = sessions[i], waves[i]
+            try:
+                for lo in range(0, len(wave), STREAM_BLOCK):
+                    before = sess._seek
+                    t0 = time.perf_counter()
+                    sess.feed(wave[lo:lo + STREAM_BLOCK])
+                    if sess._seek > before:
+                        lats.append(time.perf_counter() - t0)
+                results[i] = sess.finish()
+            except Exception as exc:  # noqa: BLE001 - raised below, in the main thread
+                errors.append(exc)
+
+        def drive_all():
+            threads = [threading.Thread(target=drive, args=(i,)) for i in range(STREAM_SESSIONS)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=900)
+            if any(th.is_alive() for th in threads):
+                raise AssertionError("a streaming session did not finish")
+
+        _, wall, counts = run_counted(drive_all, WORDS_KERNELS)
+        stats = service.stats()
+    prof = prof_snapshot()
+    if errors:
+        raise errors[0]
+    for i, result in enumerate(results):
+        if set(result) != {"text", "segments", "language", "at_time_res", "audio_tag"}:
+            raise AssertionError(f"session {i}: not transcribe()'s dict: {sorted(result)}")
+        check_segments(result, len(waves[i]), words=(i == 0))
+        seeks = [seg["seek"] for seg in result["segments"]]
+        if seeks != sorted(seeks) or any(s >= len(waves[i]) // 160 for s in seeks):
+            raise AssertionError(f"session {i}: segments out of order or past the audio")
+    if stats["max_batch_windows"] <= 1 or stats["windows"] < STREAM_SESSIONS * 3:
+        raise AssertionError(f"the service never batched windows: {stats}")
+    p50, p95 = percentiles(lats)
+    rate = STREAM_SESSIONS * STREAM_SECONDS / wall
+    print(f"streaming {SIZE}: {STREAM_SESSIONS} sessions x {STREAM_SECONDS} s in 250 ms blocks "
+          f"(one with word timestamps) in {wall:.3f} s = {rate:.2f} audio-s/s "
+          f"({rate / headline_rate:.3f}x the headline's {headline_rate:.2f} in this process), "
+          f"{stats['windows']} windows in {stats['batches']} batches (largest "
+          f"{stats['max_batch_windows']}), mel_batched_windows {stats['mel_batched_windows']}, "
+          f"window-finalize latency p50 {p50:.3f} s p95 {p95:.3f} s over {len(lats)} windows, "
+          f"launches {counts} [{card}]", flush=True)
+    print(f"streaming stages (WHISPER_AT_TPU_STREAM_PROF): {_json.dumps(prof)} [{card}]",
+          flush=True)
+    return counts
+
+
+@contextlib.contextmanager
 def switches_on():
     """The JAX package's three switches on (`SWITCH_ENV` and
     `models.decoder.FUSED_MLP`), restored on the way out, whatever happens."""
@@ -1705,6 +1927,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    # the stage profilers of the serving and streaming phases, read when the
+    # package is imported
+    os.environ["WHISPER_AT_TPU_SERVE_PROF"] = "1"
+    os.environ["WHISPER_AT_TPU_STREAM_PROF"] = "1"
     from whisper_at_tpu_torch.ops import cuda
 
     t_start = time.perf_counter()
@@ -1738,6 +1964,8 @@ def main() -> int:
     words_k6["err"] = max(words_k6["err"], rows["K6"]["err"])
     rows["K6"].update(words_k6)
     sequential_check(card, model)
+    serving_check(card, model, rate)
+    streaming_check(card, model, rate)
     probe_rows, probe_counts = probe_check(card)
     rows.update(probe_rows)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to here [{card}]",

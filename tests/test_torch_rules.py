@@ -6,6 +6,8 @@ package, and its standard-library tokenizer matches the JAX package's
 import os
 import subprocess
 import sys
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -44,7 +46,9 @@ def test_import_loads_no_jax():
             "whisper_at_tpu_torch.ops.dtw, whisper_at_tpu_torch.ops.median, "
             "whisper_at_tpu_torch.ops.w4_matmul, whisper_at_tpu_torch.ops.enc_flash, "
             "whisper_at_tpu_torch.ops.fused_mlp, whisper_at_tpu_torch.ops.flash_decode, "
-            "whisper_at_tpu_torch.ops.cross_decode_stream, whisper_at_tpu_torch.ops.probe_dma; "
+            "whisper_at_tpu_torch.ops.cross_decode_stream, whisper_at_tpu_torch.ops.probe_dma, "
+            "whisper_at_tpu_torch.serving, whisper_at_tpu_torch.streaming, "
+            "whisper_at_tpu_torch.utils.profiling, whisper_at_tpu_torch.audio; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
             "'whisper_at_tpu')]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -248,7 +252,17 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
         wat.build_model("tiny")
     with pytest.raises(RuntimeError, match="CUDA"):
         wat.log_mel_spectrogram(np.zeros(1600, np.float32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        wat.prefetch_audio(np.zeros(1600, np.float32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        wat.prefetch_audio_many([np.zeros(1600, np.float32)])
+    from whisper_at_tpu_torch import serving
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serving.main(["--random", "--model", "tiny"])
     model = wat.build_model("tiny", device="cpu")
+    with wat.TranscriptionService(model, language="en") as svc:  # on its model's device
+        assert svc._prep(np.zeros(1600, np.float32)).device.type == "cpu"
     path = tmp_path / "tiny.pt"
     torch.save({"dims": vars(model.dims), "model_state_dict": model.state_dict()}, path)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -312,8 +326,56 @@ def test_option_rules_match_jax(options):
 def test_unported_entry_points_raise():
     from whisper_at_tpu_torch.transcribe import transcribe_many
 
-    with pytest.raises(NotImplementedError):
-        transcribe_many(None, None)
+    model = wat.build_model("tiny", device="cpu")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        transcribe_many(model, [np.zeros(1600, np.int16)], mesh=object(), language="en")
+
+
+def test_kernel_loader_builds_once_and_counts_exactly_under_threads(monkeypatch):
+    """Eight threads that first reach one kernel together: its library is
+    built and loaded once, and every launch is counted."""
+    from whisper_at_tpu_torch.ops import cuda, enc_attention
+
+    kernel = enc_attention.KERNEL
+    builds, loads = [], []
+
+    def start_build():
+        builds.append(1)
+        time.sleep(0.05)  # a build that takes a while, so the threads meet in it
+
+    class Library:
+        def __init__(self, path):
+            loads.append(path)
+            setattr(self, kernel.entry, lambda *args: 0)
+
+    monkeypatch.setattr(kernel, "_lib", None)
+    monkeypatch.setattr(kernel, "_fn", None)
+    monkeypatch.setattr(kernel, "launches", 0)
+    monkeypatch.setattr(kernel, "start_build", start_build)
+    monkeypatch.setattr(kernel, "finish_build", lambda proc: None)
+    monkeypatch.setattr(cuda.ctypes, "CDLL", Library)
+    n_threads, n = 8, 2000
+    start = threading.Barrier(n_threads)
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def work():
+            start.wait()
+            for _ in range(n):
+                kernel.launch()
+
+        threads = [threading.Thread(target=work) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(switch)
+    assert len(builds) == len(loads) == 1
+    assert kernel.launches == n_threads * n
+    cuda.reset_launch_counts()
+    assert kernel.launches == 0
 
 
 @pytest.mark.parametrize("text", SAMPLES)

@@ -13,18 +13,35 @@ from typing import Optional
 import torch
 
 from .at_post_processing import parse_at_label
-from .audio import load_audio, log_mel_spectrogram, pad_or_trim
+from .audio import (
+    PrefetchedAudio,
+    load_audio,
+    load_audio_pcm16,
+    log_mel_spectrogram,
+    pad_or_trim,
+    prefetch_audio,
+    prefetch_audio_many,
+)
 from .decoding import DecodingOptions, DecodingResult, decode, detect_language
 from .models.dims import ModelDimensions, dims_for
 from .models.whisper import Whisper, build_model
-from .transcribe import transcribe, transcribe_batched
+from .serving import TranscriptionService
+from .streaming import StreamingService, StreamingTranscriber
+from .transcribe import transcribe, transcribe_batched, transcribe_many
 from .utils import resolve_device
 
 __all__ = [
-    "DecodingOptions", "DecodingResult", "ModelDimensions", "Whisper", "build_model",
-    "decode", "detect_language", "dims_for", "load_audio", "load_model",
-    "log_mel_spectrogram", "pad_or_trim", "parse_at_label", "transcribe", "transcribe_batched",
+    "DecodingOptions", "DecodingResult", "ModelDimensions", "PrefetchedAudio",
+    "StreamingService", "StreamingTranscriber", "TranscriptionService", "Whisper",
+    "build_model", "decode", "detect_language", "dims_for", "load_audio", "load_audio_pcm16",
+    "load_model", "log_mel_spectrogram", "pad_or_trim", "parse_at_label", "prefetch_audio",
+    "prefetch_audio_many", "transcribe", "transcribe_batched", "transcribe_many",
 ]
+
+# the inference entry points as model methods, as the JAX package binds them
+Whisper.detect_language = detect_language
+Whisper.decode = decode
+Whisper.transcribe = transcribe
 
 
 def load_model(path: str, device="cuda", dtype=torch.bfloat16,

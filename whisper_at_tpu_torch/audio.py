@@ -1,12 +1,15 @@
-"""Audio frontend: WAV decode, pad/trim, and the public log-mel API.
+"""Audio frontend: WAV decode, pad/trim, prefetch, and the public log-mel
+API.
 
 Only PCM WAV files are decoded (with the standard `wave` module); there is
 no ffmpeg dependency. Waveforms may be passed as arrays instead: int16 PCM
-or float32 in [-1, 1] at 16 kHz.
+or float32 in [-1, 1] at 16 kHz, or as a `PrefetchedAudio` whose copy to
+the device is already under way (`prefetch_audio`).
 """
 
 import wave
-from typing import Union
+from concurrent.futures import ThreadPoolExecutor
+from typing import BinaryIO, Union
 
 import numpy as np
 import torch
@@ -19,9 +22,13 @@ from .ops.mel import (  # noqa: F401  (re-exported constants)
     N_MELS,
     N_SAMPLES,
     SAMPLE_RATE,
+    PrefetchedAudio,
     log_mel,
+    log_mel_batched,
     mel_filters,
+    prefetch_stft_input,
 )
+from .utils import resolve_device
 
 N_SAMPLES_PER_TOKEN = HOP_LENGTH * 2  # the encoder's stem has stride 2
 FRAMES_PER_SECOND = SAMPLE_RATE // HOP_LENGTH  # 10 ms per mel frame
@@ -39,10 +46,19 @@ def _resample(x: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
     return resample_poly(x, target_sr // g, orig_sr // g).astype(np.float32)
 
 
-def load_audio(file: str, sr: int = SAMPLE_RATE) -> np.ndarray:
-    """Mono float32 waveform at `sr` Hz from a PCM WAV file (8/16/24/32-bit)."""
+def _require_wav(file: str) -> None:
     if not file.lower().endswith(".wav"):
         raise RuntimeError(f"only PCM WAV files can be decoded, not {file!r}")
+
+
+def load_audio(file: str, sr: int = SAMPLE_RATE) -> np.ndarray:
+    """Mono float32 waveform at `sr` Hz from a PCM WAV file (8/16/24/32-bit)."""
+    _require_wav(file)
+    return decode_wav(file, sr)
+
+
+def decode_wav(file: Union[str, BinaryIO], sr: int = SAMPLE_RATE) -> np.ndarray:
+    """Mono float32 waveform at `sr` Hz from PCM WAV (a path or a file object)."""
     with wave.open(file, "rb") as wf:
         channels, width, rate = wf.getnchannels(), wf.getsampwidth(), wf.getframerate()
         raw = wf.readframes(wf.getnframes())
@@ -61,6 +77,49 @@ def load_audio(file: str, sr: int = SAMPLE_RATE) -> np.ndarray:
     if channels > 1:
         x = x.reshape(-1, channels).mean(axis=1)
     return _resample(x, rate, sr)
+
+
+def decode_wav_pcm16(file: Union[str, BinaryIO], sr: int = SAMPLE_RATE) -> np.ndarray:
+    """int16 PCM when the WAV is 16-bit mono at `sr` Hz (no conversion at
+    all), else `decode_wav`'s float32."""
+    with wave.open(file, "rb") as wf:
+        if wf.getsampwidth() == 2 and wf.getnchannels() == 1 and wf.getframerate() == sr:
+            return np.frombuffer(wf.readframes(wf.getnframes()), np.int16).copy()
+    if not isinstance(file, str):
+        file.seek(0)
+    return decode_wav(file, sr)
+
+
+def load_audio_pcm16(file: str, sr: int = SAMPLE_RATE) -> np.ndarray:
+    """A PCM WAV file as int16 when that loses nothing (16-bit mono at
+    `sr`), else as `load_audio`'s float32. int16 goes to the card at half
+    the bytes and is dequantized there to `load_audio`'s values."""
+    _require_wav(file)
+    return decode_wav_pcm16(file, sr)
+
+
+def prefetch_audio(audio: Union[str, np.ndarray], padding: int = N_SAMPLES,
+                   device="cuda") -> PrefetchedAudio:
+    """Start a waveform's (or WAV file's) copy to `device` now, without
+    waiting for it: the host prep (`ops.mel.stft_host_prep`) and, on the
+    card, a pinned-host copy on a side stream. `padding` defaults to the
+    30 s tail the transcribe paths use (pass 0 to mirror a bare
+    `log_mel_spectrogram`). The result is taken wherever a waveform is."""
+    dev = resolve_device(device)
+    if isinstance(audio, str):
+        audio = load_audio_pcm16(audio)
+    return prefetch_stft_input(np.asarray(audio), padding, dev)
+
+
+def prefetch_audio_many(audios, padding: int = N_SAMPLES, workers: int = 8,
+                        device="cuda") -> list:
+    """`prefetch_audio` over many inputs in a thread pool (the WAV decode
+    and the numpy prep release the interpreter lock), in input order."""
+    dev = resolve_device(device)
+    if not audios:
+        return []
+    with ThreadPoolExecutor(max_workers=min(workers, len(audios))) as pool:
+        return list(pool.map(lambda a: prefetch_audio(a, padding, dev), audios))
 
 
 def pad_or_trim(array, length: int = N_SAMPLES, *, axis: int = -1):
@@ -82,13 +141,21 @@ def pad_or_trim(array, length: int = N_SAMPLES, *, axis: int = -1):
     return array
 
 
-def log_mel_spectrogram(audio: Union[str, np.ndarray, torch.Tensor],
+def log_mel_spectrogram(audio: Union[str, np.ndarray, torch.Tensor, PrefetchedAudio],
                         n_mels: int = N_MELS, padding: int = 0,
                         device: Union[str, torch.device, None] = None) -> torch.Tensor:
-    """Log-mel [80, n_frames] of a waveform or WAV file, computed on `device`
-    (a tensor's own device when omitted, else the card)."""
+    """Log-mel [80, n_frames] of a waveform, WAV file or `PrefetchedAudio`,
+    computed on `device` (a tensor's or prefetch's own device when omitted,
+    else the card)."""
     if n_mels != N_MELS:
         raise ValueError(f"Unsupported n_mels: {n_mels}")
+    if isinstance(audio, PrefetchedAudio):
+        if audio.padding != padding:
+            raise ValueError(f"PrefetchedAudio was prepared with padding={audio.padding}, "
+                             f"but padding={padding} was requested")
+        sig = audio.ready().to(device if device is not None else audio.device)
+        n = audio.n_frames
+        return log_mel_batched(sig[None], torch.tensor([n], device=sig.device), n)[0].t()
     if isinstance(audio, str):
         audio = load_audio(audio)
     if device is None:

@@ -13,6 +13,11 @@ Every C entry returns `cudaGetLastError()` after its launches; `CudaKernel`
 raises when that is not 0 and otherwise adds one to its launch count. The
 counts are how a run shows that the main path went through the kernels.
 Nothing here touches CUDA or runs `nvcc` at import time.
+
+Several threads may reach the kernels (a server's scheduler and its session
+threads): the first build and load of a library, and `build_all`, run under
+one lock, and each kernel's launch count is added to under its own lock, so
+no build runs twice and no launch goes uncounted.
 """
 
 import ctypes
@@ -20,6 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from typing import Dict, List, Optional
 
@@ -36,6 +42,9 @@ NVCC_FLAGS = [
 
 # registry of every kernel, by name (filled as the ops modules import)
 KERNELS: Dict[str, "CudaKernel"] = {}
+# held while a library is built or loaded: one nvcc per library, whatever
+# the number of threads that first reach it together
+_BUILD_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -61,7 +70,9 @@ class CudaKernel:
         self.argtypes = argtypes
         self.replaces = replaces
         self.launches = 0
+        self._count_lock = threading.Lock()
         self._lib = None
+        self._fn = None
         KERNELS[name] = self
 
     # ------------------------------------------------------------------ #
@@ -111,12 +122,17 @@ class CudaKernel:
             return f.read()
 
     def _function(self):
-        if self._lib is None:
-            self.finish_build(self.start_build())
-            self._lib = ctypes.CDLL(self.library_path())
-        fn = getattr(self._lib, self.entry)
-        fn.argtypes = self.argtypes
-        fn.restype = ctypes.c_int
+        fn = self._fn
+        if fn is None:
+            with _BUILD_LOCK:
+                if self._fn is None:
+                    self.finish_build(self.start_build())
+                    lib = ctypes.CDLL(self.library_path())
+                    entry = getattr(lib, self.entry)
+                    entry.argtypes = self.argtypes
+                    entry.restype = ctypes.c_int
+                    self._lib, self._fn = lib, entry
+            fn = self._fn
         return fn
 
     def c_function(self, name: str, argtypes: list):
@@ -132,7 +148,8 @@ class CudaKernel:
         rc = self._function()(*args)
         if rc != 0:
             raise RuntimeError(f"{self.name}: CUDA error {rc} at launch")
-        self.launches += 1
+        with self._count_lock:
+            self.launches += 1
 
 
 def build_all() -> float:
@@ -140,18 +157,20 @@ def build_all() -> float:
     source, all at once; returns the wall seconds it took (0 when everything
     was already built)."""
     t0 = time.perf_counter()
-    procs = {}
-    for k in KERNELS.values():
-        if k.library_path() not in procs:
-            procs[k.library_path()] = (k, k.start_build())
-    for kernel, proc in procs.values():
-        kernel.finish_build(proc)
+    with _BUILD_LOCK:
+        procs = {}
+        for k in KERNELS.values():
+            if k.library_path() not in procs:
+                procs[k.library_path()] = (k, k.start_build())
+        for kernel, proc in procs.values():
+            kernel.finish_build(proc)
     return time.perf_counter() - t0
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
-        k.launches = 0
+        with k._count_lock:
+            k.launches = 0
 
 
 def launch_counts() -> Dict[str, int]:

@@ -15,10 +15,17 @@ Counterpart of `whisper_at_tpu/transcribe.py`:
                       aligned word with word timestamps), the previous text
                       threaded into the next window's prompt.
 
-Both attach word timestamps on request (`timing.py`). Not ported yet, and
-refused with NotImplementedError: a device mesh and `transcribe_many`.
+  transcribe_many     the serving path: many recordings through shared
+                      batches. Their windows are packed across files into
+                      `transcribe_batched`'s decode, grouped by language, so
+                      each file's result equals `transcribe_batched` on it.
+
+Each takes a waveform, a WAV path or a `PrefetchedAudio`, and attaches word
+timestamps on request (`timing.py`). Not ported yet, and refused with
+NotImplementedError: a device mesh.
 """
 
+import time
 import warnings
 from typing import List, Optional, Tuple, Union
 
@@ -31,11 +38,14 @@ from .audio import (
     N_FRAMES,
     N_SAMPLES,
     SAMPLE_RATE,
+    PrefetchedAudio,
     log_mel_spectrogram,
     pad_or_trim,
+    prefetch_audio,
 )
 from .decoding import DecodingOptions, DecodingResult, DecodingTask, decode, detect_language
 from .languages import LANGUAGES
+from .ops.mel import WINDOW_SLACK, mel_windows_many
 from .segmentation import (
     QualityGate,
     TagGrid,
@@ -52,9 +62,16 @@ from .timing import (
 )
 from .tokenizer import get_tokenizer
 from .utils import exact_div, format_timestamp, make_safe
+from .utils.profiling import StageProf
 
 DEFAULT_MAX_BATCH = 24  # 30 s windows per device batch
 ALIGN_BATCH = 8  # windows per add_word_timestamps_many call of the batched path
+
+# WHISPER_AT_TPU_SERVE_PROF=1: wall and CPU time of each stage of every
+# transcribe_many call (frontend-mel, detect, decode, tag-dispatch, assembly,
+# tag-commit, emit) and of the serving scheduler (sched-fill, sched-gap,
+# sched-settle); off, each stage costs a nullcontext
+_serve_prof = StageProf("WHISPER_AT_TPU_SERVE_PROF")
 
 
 def print_segment(seg: dict) -> None:
@@ -63,9 +80,11 @@ def print_segment(seg: dict) -> None:
 
 
 def _resolve_language(model, mel_window: torch.Tensor, decode_options: dict,
-                      verbose: Optional[bool]) -> str:
+                      verbose: Optional[bool], detect_fn=None) -> str:
     """Fill decode_options["language"], detecting it from the first window
-    when it is unset on a multilingual model."""
+    when it is unset on a multilingual model. `detect_fn` (mel window ->
+    {language: probability}), when given, replaces the inline detection
+    (a streaming service batches it across sessions)."""
     if decode_options.get("language") is None:
         if not model.is_multilingual:
             decode_options["language"] = "en"
@@ -73,11 +92,20 @@ def _resolve_language(model, mel_window: torch.Tensor, decode_options: dict,
             if verbose:
                 print("Detecting language using up to the first 30 seconds. "
                       "Use `--language` to specify the language")
-            _, probs = detect_language(model, mel_window)
+            if detect_fn is not None:
+                probs = detect_fn(mel_window)
+            else:
+                _, probs = detect_language(model, mel_window)
             decode_options["language"] = max(probs, key=probs.get)
             if verbose is not None:
                 print(f"Detected language: {LANGUAGES[decode_options['language']].title()}")
     return decode_options["language"]
+
+
+def _reject_conditioning(decode_options: dict) -> None:
+    if decode_options.pop("condition_on_previous_text", False):
+        raise ValueError("condition_on_previous_text=True is sequential; the batched "
+                         "paths decode windows in parallel")
 
 
 def _geometry(model) -> Tuple[int, float]:
@@ -202,7 +230,7 @@ def _assemble_windows(model, results, content_frames: int, tokenizer, gate: Qual
 
 def transcribe_batched(
     model,
-    audio: Union[str, np.ndarray, torch.Tensor],
+    audio: Union[str, np.ndarray, torch.Tensor, PrefetchedAudio],
     *,
     temperature: Union[float, Tuple[float, ...]] = (0.0, 0.2, 0.4, 0.6, 0.8, 1.0),
     compression_ratio_threshold: Optional[float] = 2.4,
@@ -224,9 +252,7 @@ def transcribe_batched(
     segment also has "words" (word, start, end, probability)."""
     if mesh is not None:
         raise NotImplementedError("a device mesh is not ported yet")
-    if decode_options.pop("condition_on_previous_text", False):
-        raise ValueError("condition_on_previous_text=True is sequential; the batched "
-                         "path decodes windows in parallel")
+    _reject_conditioning(decode_options)
     with torch.no_grad():
         mel = log_mel_spectrogram(audio, padding=N_SAMPLES, device=model.device)
         gate = QualityGate(compression_ratio_threshold, logprob_threshold,
@@ -277,9 +303,19 @@ def _tag_window(model, grid: TagGrid, seek: int, result: DecodingResult,
     grid.write(seek, tags.float().cpu().numpy())
 
 
+def _attach_word_timings(model, tokenizer, segments, mel_window, num_frames,
+                         prepend_punctuations, append_punctuations,
+                         audio_features=None) -> None:
+    """Word timings of one window's segments (the streaming session's)."""
+    add_word_timestamps(segments=segments, model=model, tokenizer=tokenizer, mel=mel_window,
+                        num_frames=num_frames, prepend_punctuations=prepend_punctuations,
+                        append_punctuations=append_punctuations,
+                        audio_features=audio_features)
+
+
 def transcribe(
     model,
-    audio: Union[str, np.ndarray, torch.Tensor],
+    audio: Union[str, np.ndarray, torch.Tensor, PrefetchedAudio],
     *,
     verbose: Optional[bool] = None,
     temperature: Union[float, Tuple[float, ...]] = (0.0, 0.2, 0.4, 0.6, 0.8, 1.0),
@@ -381,6 +417,170 @@ def transcribe(
                 language=language, at_time_res=at_time_res, audio_tag=grid.logits)
 
 
-def transcribe_many(*args, **kwargs):
-    raise NotImplementedError("transcribe_many is not ported yet; "
-                              "call transcribe_batched per recording")
+def _fit(sig: torch.Tensor, length: int) -> torch.Tensor:
+    """A prepared signal cut or zero-extended to `length` samples."""
+    if sig.shape[0] >= length:
+        return sig[:length]
+    return torch.cat([sig, sig.new_zeros(length - sig.shape[0])])
+
+
+def _frontend_many(model, audios, needs_detect: bool, max_batch: int) -> List[dict]:
+    """Per file: {"windows" [W, 80, 3000] or None, "content" frames,
+    "first" [80, 3000] window for detection (or None)}. Files with W
+    windows share batched mel calls of up to max_batch files (which bounds
+    the call's memory), their prepared signals cut to the frames the
+    windows read (`ops.mel.mel_windows_many`)."""
+    dev = model.device
+    prepped = []
+    for audio in audios:
+        if isinstance(audio, PrefetchedAudio):
+            if audio.padding != N_SAMPLES:
+                raise ValueError(f"PrefetchedAudio was prepared with padding={audio.padding}; "
+                                 f"transcribe_many needs {N_SAMPLES}")
+        else:
+            audio = prefetch_audio(audio, N_SAMPLES, dev)
+        prepped.append(audio)
+
+    files, groups = [], {}
+    for i, p in enumerate(prepped):
+        content = p.n_frames - N_FRAMES
+        n_windows = -(-content // N_FRAMES) if content > 0 else 0
+        files.append({"windows": None, "content": content, "first": None})
+        if n_windows:
+            groups.setdefault(n_windows, []).append(i)
+        elif needs_detect:
+            # detection reads the all-padding first window, as per file
+            files[i]["first"] = pad_or_trim(
+                log_mel_spectrogram(p, padding=N_SAMPLES, device=dev), N_FRAMES)
+    for n_windows, group in groups.items():
+        length = (n_windows * N_FRAMES + WINDOW_SLACK + 2) * HOP_LENGTH
+        for lo in range(0, len(group), max_batch):
+            _group_windows(files, prepped, group[lo:lo + max_batch], n_windows, length, dev)
+    return files
+
+
+def _group_windows(files, prepped, idxs, n_windows: int, length: int, dev) -> None:
+    """One batched mel call over files of n_windows windows each."""
+    rows = [_fit(prepped[i].ready().to(dev), length) for i in idxs]
+    if len({r.dtype for r in rows}) > 1:
+        rows = [r.float() * (1.0 / 32768.0) if r.dtype == torch.int16 else r
+                for r in rows]
+    n_valid = torch.tensor([prepped[i].n_frames for i in idxs], device=dev)
+    wins = mel_windows_many(torch.stack(rows), n_valid, n_windows)
+    for row, i in enumerate(idxs):
+        files[i]["windows"] = wins[row]
+        files[i]["first"] = wins[row, 0]
+
+
+def transcribe_many(
+    model,
+    audios,
+    *,
+    temperature: Union[float, Tuple[float, ...]] = (0.0, 0.2, 0.4, 0.6, 0.8, 1.0),
+    compression_ratio_threshold: Optional[float] = 2.4,
+    logprob_threshold: Optional[float] = -1.0,
+    no_speech_threshold: Optional[float] = 0.6,
+    at_time_res: float = 10,
+    max_batch: int = DEFAULT_MAX_BATCH,
+    mesh=None,
+    initial_prompt: Optional[str] = None,
+    word_timestamps: bool = False,
+    prepend_punctuations: str = PREPEND_PUNCTUATIONS,
+    append_punctuations: str = APPEND_PUNCTUATIONS,
+    verbose: Optional[bool] = None,
+    **decode_options,
+) -> List[dict]:
+    """Transcribe and tag many recordings (waveforms, WAV paths or
+    `PrefetchedAudio`) through shared batches on the model's device.
+
+    One batched mel call per window count, one language-id pass over the
+    first windows of every file (`max_batch` at a time) when the language
+    is unset on a multilingual model, then the windows of every file of a
+    language packed into `transcribe_batched`'s decode, one tag pass over
+    every window, and the per-file assembly. Windows decode independently,
+    so each result equals `transcribe_batched` on that file. Returns one
+    `transcribe_batched`-shaped dict per input, in order."""
+    if mesh is not None:
+        raise NotImplementedError("a device mesh is not ported yet")
+    _reject_conditioning(decode_options)
+    prof = _serve_prof
+    gate = QualityGate(compression_ratio_threshold, logprob_threshold, no_speech_threshold)
+    input_stride, time_precision = _geometry(model)
+    task = decode_options.get("task", "transcribe")
+    needs_detect = decode_options.get("language") is None and model.is_multilingual
+    fixed_language = (decode_options.get("language") if model.is_multilingual
+                      else decode_options.get("language") or "en")
+
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        files = _frontend_many(model, audios, needs_detect, max_batch)
+        prof.add("frontend-mel", time.perf_counter() - t0)
+
+        t0 = time.perf_counter()
+        for f in files:
+            f["language"] = fixed_language
+        if needs_detect:
+            if verbose:
+                print("Detecting language using up to the first 30 seconds. "
+                      "Use `--language` to specify the language")
+            for lo in range(0, len(files), max_batch):
+                chunk = files[lo:lo + max_batch]
+                _, probs = detect_language(model, torch.stack([f["first"] for f in chunk]))
+                for f, p in zip(chunk, probs):
+                    f["language"] = max(p, key=p.get)
+                    if verbose is not None:
+                        print(f"Detected language: {LANGUAGES[f['language']].title()}")
+        prof.add("detect", time.perf_counter() - t0)
+
+        t0 = time.perf_counter()
+        by_language = {}
+        for i, f in enumerate(files):
+            by_language.setdefault(f["language"], []).append(i)
+        results: List[list] = [[] for _ in files]
+        for language, idxs in by_language.items():
+            tokenizer = get_tokenizer(model.is_multilingual, language=language, task=task)
+            opts = dict(decode_options, language=language)
+            if initial_prompt is not None:
+                opts["prompt"] = tokenizer.encode(" " + initial_prompt.strip())
+            for i in idxs:
+                files[i]["tokenizer"] = tokenizer
+            # empty recordings decode nothing; their results stay []
+            live = [i for i in idxs if files[i]["windows"] is not None]
+            if not live:
+                continue
+            packed = torch.cat([files[i]["windows"] for i in live])
+            decoded = _decode_windows_batched(model, packed, temperature, gate, opts,
+                                              max_batch)
+            pos = 0
+            for i in live:
+                n = files[i]["windows"].shape[0]
+                results[i] = decoded[pos:pos + n]
+                pos += n
+        prof.add("decode", time.perf_counter() - t0)
+
+        t0 = time.perf_counter()
+        entries = []
+        for i, f in enumerate(files):
+            f["grid"] = TagGrid(f["content"], at_time_res)
+            entries += [(f["grid"], w * N_FRAMES, r.audio_features_for_at)
+                        for w, r in enumerate(results[i])]
+        commit_tags = _stitch_tags_dispatch(model, entries, at_time_res, max_batch)
+        prof.add("tag-dispatch", time.perf_counter() - t0)
+
+        t0 = time.perf_counter()
+        assembled = [_assemble_windows(model, results[i], f["content"], f["tokenizer"], gate,
+                                       input_stride, time_precision, word_timestamps,
+                                       prepend_punctuations, append_punctuations, verbose)
+                     for i, f in enumerate(files)]
+        prof.add("assembly", time.perf_counter() - t0)
+
+        t0 = time.perf_counter()
+        commit_tags()
+        prof.add("tag-commit", time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    out = [dict(text=f["tokenizer"].decode(tokens), segments=segments,
+                language=f["language"], at_time_res=at_time_res, audio_tag=f["grid"].logits)
+           for f, (tokens, segments) in zip(files, assembled)]
+    prof.add("emit", time.perf_counter() - t0)
+    return out
