@@ -53,6 +53,16 @@ before and read just after, and checks its output:
 (11) live streaming: 8 sessions of one `StreamingService`, 90 s each in
     250 ms blocks from their own threads, one with word timestamps (K1-K4,
     K6; `streaming_check`);
+(12) the training path (`training_check`): 96 synthesized 10 s clips as
+    WAVs, `research.feature_extract.extract_feature_set` at n_frames 1000
+    (T = 500 encoder positions) in chunks of 24 into `feat_as_smoke` (K1
+    and K2 once a layer a chunk, 128 each; K3 and K4 never; two clips held
+    against the plain attention and MLP; a second call writes nothing), then
+    TL-TR `lw_tr_1_8` at `recipes/run_as_full_train.sh`'s settings (lr 5e-5,
+    batch 48, mixup 0.5, time masks 10, label smoothing 0.1, balanced
+    sampling) for 2 epochs with validation, `wa_model` and its validation,
+    a resumed third epoch, one step in fp32 beside bf16, and the step's
+    time against its bound;
 (9) the streaming probe: `tools/probe_dma_torch.py`'s `probe` at the JAX
     probe's defaults (512 MiB int8 in 1 MiB chunks, the same numpy draw):
     P1 and P2 (cp.async and TMA rings at depths 2, 4, 8), each bitwise
@@ -74,8 +84,8 @@ window count) with its held kernel inputs, the serving and streaming
 phases' throughput beside the headline's, latency percentiles and stage
 profiles (WHISPER_AT_TPU_SERVE_PROF, WHISPER_AT_TPU_STREAM_PROF), the int4
 call's, the beam call's and the two switches calls' throughput side by
-side, the probe's rows (GB/s and share of 3.35 TB/s), then a
-JSON line with every kernel's numbers and, last, the `{"ok": true,
+side, the extraction's and the training's lines, the probe's rows (GB/s
+and share of 3.35 TB/s), then a JSON line with every kernel's numbers and, last, the `{"ok": true,
 "device": ...}` line. Any failed phase raises and exits non-zero before the
 result lines. Without a CUDA card it exits non-zero at once.
 `tools/profile_torch_headline.py` takes its audio and options from here.
@@ -1632,7 +1642,7 @@ def sequential_check(card: str, model) -> dict:
 @contextlib.contextmanager
 def decoded_rows():
     """The rows each `DecodingTask.run` of the block decoded (a list, filled
-    as the block runs): windows plus the batch ladder's copies."""
+    as the block runs): exactly the windows of each batch."""
     from whisper_at_tpu_torch.decoding import DecodingTask
 
     rows, run = [], DecodingTask.run
@@ -1829,6 +1839,323 @@ def streaming_check(card: str, model, headline_rate: float) -> dict:
     return counts
 
 
+# ---- (12) the training path ------------------------------------------------ #
+# recipes/run_as_full_train.sh on 96 synthetic 10 s clips: all-layer features
+# at n_frames 1000 (T = 500 encoder positions), then TL-TR lw_tr_1_8 at its
+# lr, batch, mixup, time masks, label smoothing and balanced sampling
+TRAIN_CLIPS = 96
+TRAIN_CLIP_S = 10
+EXTRACT_FRAMES = 1000
+EXTRACT_BATCH = 24
+TRAIN_MODE = "lw_tr_1_8"
+TRAIN_BATCH = 48
+TRAIN_EPOCHS = 2
+TRAIN_RECIPE = dict(freqm=0, timem=10, mixup=0.5, label_smooth=0.1)
+TRAIN_LR = 5e-5
+TRAIN_STEP_ITERS = 10
+N_CLASSES = 527
+
+
+def write_training_set(root: str) -> tuple:
+    """TRAIN_CLIPS int16 WAVs of TRAIN_CLIP_S s (`synth_audio`, seeds 0 ..
+    TRAIN_CLIPS - 1), a 527-row label CSV (display names from the JAX
+    package's asset, read by path; mids /m/{i}) and a data JSON with 1-3
+    labels a clip from default_rng(0). Returns (data json, label csv)."""
+    import csv
+
+    assets = os.path.join(os.path.dirname(os.path.abspath(__file__)), "whisper_at_tpu",
+                          "assets", "label_name_dict.json")
+    with open(assets, encoding="utf8") as f:
+        names = json.load(f)["en"]
+    label_csv = os.path.join(root, "class_labels_indices.csv")
+    with open(label_csv, "w", newline="", encoding="utf8") as f:
+        writer = csv.writer(f)
+        writer.writerow(["index", "mid", "display_name"])
+        for i, name in enumerate(names[:N_CLASSES]):
+            writer.writerow([i, f"/m/{i}", name])
+    rng = np.random.default_rng(0)
+    data = []
+    for i in range(TRAIN_CLIPS):
+        path = os.path.join(root, f"clip{i:03d}.wav")
+        with open(path, "wb") as f:
+            f.write(wav_body(synth_audio(TRAIN_CLIP_S, i)))
+        labels = rng.choice(N_CLASSES, size=int(rng.integers(1, 4)), replace=False)
+        data.append({"wav": path, "labels": ",".join(f"/m/{k}" for k in labels)})
+    data_json = os.path.join(root, "data.json")
+    with open(data_json, "w") as f:
+        json.dump({"data": data}, f)
+    return data_json, label_csv
+
+
+@contextlib.contextmanager
+def extraction_timers():
+    """Device time of each `extract_features_many` call (mel, encoder and
+    pooling; CUDA events around it, no synchronisation added), host wall
+    time of each chunk's file writing (`_save_chunk`) and the summed time of
+    its `np.savez_compressed` calls (on WRITE_THREADS threads), while the
+    block runs."""
+    from whisper_at_tpu_torch.research import feature_extract as fx
+
+    events, write_s, savez_s = [], [], []
+    many, save_chunk, savez = fx.extract_features_many, fx._save_chunk, np.savez_compressed
+
+    def timed_many(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = many(*args, **kwargs)
+        end.record()
+        events.append((start, end))
+        return out
+
+    def timed(fn, spent):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            fn(*args, **kwargs)
+            spent.append(time.perf_counter() - t0)
+        return run
+
+    fx.extract_features_many, fx._save_chunk = timed_many, timed(save_chunk, write_s)
+    np.savez_compressed = timed(savez, savez_s)
+    times = {}
+    try:
+        yield times
+    finally:
+        fx.extract_features_many, fx._save_chunk, np.savez_compressed = many, save_chunk, savez
+        torch.cuda.synchronize()
+        times["encoder_s"] = sum(s.elapsed_time(e) for s, e in events) / 1e3
+        times["write_s"], times["savez_s"] = sum(write_s), sum(savez_s)
+        times["chunks"] = len(events)
+
+
+def extraction_kernel_points(card: str, inputs: dict) -> None:
+    """K1 and K2 timed at each shape the extraction gave them, beside their
+    plain versions, SDPA (K1) or the unfused chain (K2), and the bound."""
+    from whisper_at_tpu_torch.ops import enc_attention, enc_mlp
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for q, k, v, n_head in inputs["K1"]:
+        b, t, d = q.shape
+        dh = d // n_head
+        qh, kh, vh = (x.view(b, t, n_head, dh).transpose(1, 2) for x in (q, k, v))
+        lim = bound(4.0 * b * n_head * t * t * dh, 4.0 * b * t * d * 2, PEAK_BF16_FLOPS)
+        ms = time_ms(lambda: enc_attention.enc_attention(q, k, v, n_head), 10)
+        print(f"extraction K1 {[b, t, d]}: kernel {ms:.4f} ms, plain "
+              f"{time_ms(lambda: enc_attention.enc_attention_plain(q, k, v, n_head), 3, 1):.4f}"
+              f" ms, SDPA {time_ms(lambda: sdpa(qh, kh, vh), 10):.4f} ms, bound {lim[0]:.4f} ms "
+              f"({lim[1]}), {100 * lim[0] / ms:.1f}% of it [{card}]", flush=True)
+    for args in inputs["K2"]:
+        m = args[0].numel() // args[0].shape[-1]
+        lim = k2_bound(m)
+        ms = time_ms(lambda: enc_mlp.enc_mlp(*args), 10)
+        print(f"extraction K2 {list(args[0].shape)}: kernel {ms:.4f} ms, plain "
+              f"{time_ms(lambda: enc_mlp.enc_mlp_plain(*args), 3, 1):.4f} ms, unfused chain "
+              f"{time_ms(lambda: k2_chain(*args), 10):.4f} ms, bound {lim[0]:.4f} ms "
+              f"({lim[1]}), {100 * lim[0] / ms:.1f}% of it [{card}]", flush=True)
+
+
+def extraction_check(card: str, model, data_json: str, feat_dir: str) -> dict:
+    """(12a) `extract_feature_set` over the clips in chunks of EXTRACT_BATCH,
+    bf16: every clip's file [32, 25, 1280]; K1 and K2 launched once a layer
+    a chunk, K3 / K4 never; each distinct K1 / K2 input held against its
+    plain version and timed; two clips against the same clips through the
+    plain attention and MLP (each layer within K2's check tolerance:
+    1e-3 + 2^-6 max |ref|); a second call writes nothing."""
+    from whisper_at_tpu_torch.research import feature_extract as fx
+
+    n_layer = model.dims.n_audio_layer
+    with Recorder() as rec, extraction_timers() as times:
+        written, wall, counts = run_counted(
+            lambda: fx.extract_feature_set(model, data_json, feat_dir, n_frames=EXTRACT_FRAMES,
+                                           batch_size=EXTRACT_BATCH, fp16=True),
+            ("K1", "K2"), ("K3", "K4"))
+    n_chunks = -(-TRAIN_CLIPS // EXTRACT_BATCH)
+    k1, k2 = kernels_of(("K1", "K2"))
+    if counts[k1] != n_chunks * n_layer or counts[k2] != n_chunks * n_layer:
+        raise AssertionError(f"extraction launched K1 {counts[k1]} and K2 {counts[k2]} times, "
+                             f"not {n_chunks * n_layer}")
+    if len(written) != TRAIN_CLIPS:
+        raise AssertionError(f"{len(written)} feature files written, not {TRAIN_CLIPS}")
+    feats = []
+    for path in written:
+        with np.load(path) as f:
+            feat = f["arr_0"]
+        if feat.shape != (n_layer, EXTRACT_FRAMES // 40, D) or feat.dtype != np.float32 \
+                or not np.isfinite(feat).all():
+            raise AssertionError(f"{path}: {feat.shape} {feat.dtype}, or not finite")
+        if len(feats) < 2:
+            feats.append(feat)
+    hold_path_inputs(card, "extraction", rec.inputs)
+    extraction_kernel_points(card, rec.inputs)
+    del rec
+
+    # the first two clips through the plain attention and MLP
+    from whisper_at_tpu_torch.audio import load_audio_pcm16
+
+    with open(data_json) as f:
+        wavs = [e["wav"] for e in json.load(f)["data"][:2]]
+    saved = {k: os.environ.get(k) for k in ("WHISPER_AT_TPU_ENC_ATTN", "WHISPER_AT_TPU_ENC_MLP")}
+    os.environ.update(WHISPER_AT_TPU_ENC_ATTN="xla", WHISPER_AT_TPU_ENC_MLP="xla")
+    try:
+        ref = fx.extract_features_many(model, [load_audio_pcm16(w) for w in wavs],
+                                       EXTRACT_FRAMES, fp16=True).cpu().numpy()
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    worst = 0.0
+    for feat, r in zip(feats, ref):
+        for layer in range(n_layer):
+            err = float(np.abs(feat[layer] - r[layer]).max())
+            tol = 1e-3 + 2 ** -6 * float(np.abs(r[layer]).max())
+            worst = max(worst, err / tol)
+    if not worst <= 1.0:
+        raise AssertionError(f"extracted features differ from the plain path's by {worst:.3f}x "
+                             "K2's tolerance")
+    again = fx.extract_feature_set(model, data_json, feat_dir, n_frames=EXTRACT_FRAMES,
+                                   batch_size=EXTRACT_BATCH, fp16=True)
+    if again:
+        raise AssertionError(f"the second call wrote {len(again)} files")
+    audio_s = TRAIN_CLIPS * TRAIN_CLIP_S
+    print(f"extraction {SIZE} ({TRAIN_CLIPS} clips of {TRAIN_CLIP_S} s, n_frames "
+          f"{EXTRACT_FRAMES}, chunks of {EXTRACT_BATCH}, bf16): {wall:.3f} s = "
+          f"{audio_s / wall:.2f} audio-s/s, {TRAIN_CLIPS / wall:.2f} clips/s; encoder (mel, "
+          f"encoder, pooling; device time) {times['encoder_s']:.3f} s over {times['chunks']} "
+          f"chunks, writing {times['write_s']:.3f} s (host wall; np.savez_compressed "
+          f"{times['savez_s']:.3f} s summed over {fx.WRITE_THREADS} threads); launches K1 "
+          f"{counts[k1]}, K2 {counts[k2]}; two clips against the plain attention and MLP at "
+          f"{worst:.3f} of K2's tolerance a layer; second call wrote 0 files [{card}]",
+          flush=True)
+    return counts
+
+
+def step_times(head, batch, mode: str) -> dict:
+    """One step from the same parameters in fp32 and in bf16 on one batch
+    (losses), then TRAIN_STEP_ITERS bf16 steps, each synchronised: ms per
+    step (the median after the first)."""
+    import copy
+
+    from whisper_at_tpu_torch import train as T
+
+    feats, labels = (torch.from_numpy(x).cuda() for x in batch)
+    losses = {}
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        model = copy.deepcopy(head)
+        step = T.make_train_step(mode, T.make_optimizer(model.parameters(), TRAIN_LR),
+                                 compute_dtype=dtype)
+        losses[name] = float(step(model, feats, labels))
+    ms = []
+    for _ in range(TRAIN_STEP_ITERS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(model, feats, labels)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return dict(losses=losses, ms=float(np.median(ms[1:])), first_ms=ms[0])
+
+
+def training_check(card: str, model) -> None:
+    """(12) The training path at large-v1 full width, in a temporary
+    directory removed at the end: the clips and their labels
+    (`write_training_set`), extraction (`extraction_check`), then TL-TR
+    `lw_tr_1_8` at the recipe's settings for TRAIN_EPOCHS epochs (a dataset
+    name other than as-full, so every batch runs), validated each epoch
+    over the clips; `wa_model` over both epochs, validated; a fresh head
+    resumed for epoch 3. Every loss, mAP and AUC finite; no feature file
+    fell back to zeros; one step from the same parameters in fp32 and in
+    bf16 agree to 2e-2 relative."""
+    import tempfile
+
+    from whisper_at_tpu_torch import train as T
+    from whisper_at_tpu_torch.ops import flops
+    from whisper_at_tpu_torch.train.loop import load_tltr
+
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as root:
+        data_json, label_csv = write_training_set(root)
+        # FeatureDataset reads .npz only from a directory named like this
+        feat_dir = os.path.join(root, "feat_as_smoke")
+        extraction_check(card, model, data_json, feat_dir)
+
+        conf = dict(TRAIN_RECIPE, dataset="smoke", tar_path=feat_dir)
+        val_conf = dict(freqm=0, timem=0, mixup=0, dataset="smoke", tar_path=feat_dir)
+        train_set = T.FeatureDataset(data_json, conf, label_csv)
+        val_set = T.FeatureDataset(data_json, val_conf, label_csv)
+        weights = T.balanced_sample_weights(data_json, label_csv)
+
+        def loaders():
+            return (T.DataLoader(train_set, TRAIN_BATCH, sampler_weights=weights, num_workers=8,
+                                 seed=SEED),
+                    T.DataLoader(val_set, TRAIN_BATCH, shuffle=False, num_workers=8))
+
+        n_layer, rep_dim = T.tltr_shape_for(f"whisper-{SIZE}")
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        head = T.init_tltr(gen, N_CLASSES, n_layer, rep_dim, TRAIN_MODE)
+        start_head = {k: v.clone() for k, v in head.state_dict().items()}
+        exp = os.path.join(root, "exp")
+        report = {}
+        t0 = time.perf_counter()
+        T.train(head, TRAIN_MODE, *loaders(), exp_dir=exp, lr=TRAIN_LR, n_epochs=TRAIN_EPOCHS,
+                dataset="smoke", n_print_steps=1, report=report)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        result = np.loadtxt(os.path.join(exp, "result.csv"), delimiter=",")
+        if sorted(report) != list(range(1, TRAIN_EPOCHS + 1)) or not np.isfinite(result).all() \
+                or not all(np.isfinite([r["loss"], r["valid_loss"], r["mAP"], r["mAUC"]]).all()
+                           for r in report.values()):
+            raise AssertionError(f"training: a loss, mAP or AUC is not finite: {report}")
+
+        averaged = T.wa_model(exp, 1, TRAIN_EPOCHS)
+        t0 = time.perf_counter()
+        wa_stats, _ = T.validate(T.make_eval_step(TRAIN_MODE), load_tltr(averaged, TRAIN_MODE),
+                                 loaders()[1])
+        wa_valid_s = time.perf_counter() - t0
+        wa_map, wa_auc = T.mean_average_precision(wa_stats), T.mean_auc(wa_stats)
+        if not np.isfinite([wa_map, wa_auc]).all():
+            raise AssertionError(f"averaged head: mAP {wa_map}, AUC {wa_auc}")
+
+        gen.manual_seed(SEED + 1)
+        fresh = T.init_tltr(gen, N_CLASSES, n_layer, rep_dim, TRAIN_MODE)
+        resumed = {}
+        T.train(fresh, TRAIN_MODE, *loaders(), exp_dir=exp, lr=TRAIN_LR,
+                n_epochs=TRAIN_EPOCHS + 1, dataset="smoke", n_print_steps=1, resume=True,
+                report=resumed)
+        after = np.loadtxt(os.path.join(exp, "result.csv"), delimiter=",")
+        if sorted(resumed) != [TRAIN_EPOCHS + 1] or not np.array_equal(
+                after[:TRAIN_EPOCHS], result) or not np.isfinite(after).all() \
+                or after[TRAIN_EPOCHS, 3] != TRAIN_LR:
+            raise AssertionError(f"resume: epochs run {sorted(resumed)}, result.csv {after}")
+        if train_set.missing or val_set.missing:
+            raise AssertionError(f"{train_set.missing} train and {val_set.missing} validation "
+                                 "items fell back to zeros")
+
+        head.load_state_dict(start_head)
+        batch = next(iter(loaders()[0]))
+        steps = step_times(head, batch, TRAIN_MODE)
+        loss32, loss16 = steps["losses"]["fp32"], steps["losses"]["bf16"]
+        if not abs(loss16 - loss32) <= 2e-2 * abs(loss32):
+            raise AssertionError(f"one step: bf16 loss {loss16} against fp32 {loss32}")
+    peak = torch.cuda.max_memory_allocated()
+    step_bound_ms = (flops.tltr_flops(TRAIN_MODE, model.dims.n_audio_layer, D) * 2 * 3
+                     * TRAIN_BATCH / PEAK_BF16_FLOPS * 1e3)
+    last = report[TRAIN_EPOCHS]
+    print(f"training {TRAIN_MODE} on [{model.dims.n_audio_layer}, 25, {D}] features, batch "
+          f"{TRAIN_BATCH}, bf16: {TRAIN_EPOCHS} epochs of {TRAIN_CLIPS // TRAIN_BATCH} steps with "
+          f"validation in {train_s:.3f} s; result.csv {result.tolist()}; step "
+          f"{steps['ms']:.3f} ms (median of {TRAIN_STEP_ITERS - 1} after a first of "
+          f"{steps['first_ms']:.3f}) = {TRAIN_BATCH / steps['ms'] * 1e3:.1f} samples/s, "
+          f"{100 * step_bound_ms / steps['ms']:.1f}% of its {step_bound_ms:.3f} ms bound "
+          f"(tltr_flops x 2 x 3 x {TRAIN_BATCH} at 989 TFLOP/s); loader per sample: data "
+          f"{last['per_sample_data_s'] * 1e3:.3f} ms, DNN {last['per_sample_dnn_s'] * 1e3:.3f} "
+          f"ms (epoch {TRAIN_EPOCHS}); validation {last['valid_s']:.3f} s, averaged head's "
+          f"{wa_valid_s:.3f} s (mAP {wa_map:.4f}, AUC {wa_auc:.4f}); one step fp32 loss "
+          f"{loss32:.6f}, bf16 {loss16:.6f}; resumed epoch {TRAIN_EPOCHS + 1}: mAP "
+          f"{after[TRAIN_EPOCHS, 1]:.4f}; peak device memory {peak / 2**30:.2f} GiB [{card}]",
+          flush=True)
+
+
 @contextlib.contextmanager
 def switches_on():
     """The JAX package's three switches on (`SWITCH_ENV` and
@@ -1966,6 +2293,7 @@ def main() -> int:
     sequential_check(card, model)
     serving_check(card, model, rate)
     streaming_check(card, model, rate)
+    training_check(card, model)
     probe_rows, probe_counts = probe_check(card)
     rows.update(probe_rows)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to here [{card}]",

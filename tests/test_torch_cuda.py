@@ -119,6 +119,23 @@ def test_enc_mlp_kernel(dev, d, b, t):
     _close(enc_mlp(*args), enc_mlp_plain(*args))
 
 
+@pytest.mark.parametrize("t", [500, 250])
+def test_k1_and_k2_at_the_extraction_shapes(dev, t):
+    """K1 and K2 at the feature extraction's [4, T, 1280]: T = 500 (10 s
+    AudioSet clips) and 250 (5 s ESC-50 clips), neither a multiple of the
+    128-row tiles, so the last query and key tiles are partial."""
+    from whisper_at_tpu_torch.ops import enc_attention, enc_flash
+    from whisper_at_tpu_torch.ops.enc_mlp import enc_mlp, enc_mlp_plain
+
+    gen = torch.Generator(device=dev).manual_seed(t)
+    q, k, v = (_randn(gen, 4, t, 1280) for _ in range(3))
+    out = enc_attention.enc_attention(q, k, v, 20)
+    _within_k1_bound(out, enc_flash.enc_flash_plain(q, k, v, 20))
+    _close(out, enc_attention.enc_attention_plain(q, k, v, 20))
+    args = _enc_mlp_args(gen, 4, t, 1280)
+    _close(enc_mlp(*args), enc_mlp_plain(*args))
+
+
 def test_enc_mlp_kernel_at_the_headline_rows(dev):
     """K2 at large-v1 batch 24 (M = 36000 = 281 x 128 + 32, D = 1280), where
     both products take 256-wide blocks and every block runs ~11 tiles."""

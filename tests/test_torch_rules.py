@@ -56,6 +56,20 @@ def test_import_loads_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_training_modules_load_no_jax_optax_or_sklearn():
+    """The training stack, the extraction, the checkpoint files and the
+    operation counts load neither JAX, optax nor scikit-learn (the card's
+    machine has none of them), nor the JAX package."""
+    code = ("import sys, whisper_at_tpu_torch.train, whisper_at_tpu_torch.train.run, "
+            "whisper_at_tpu_torch.research, whisper_at_tpu_torch.research.feature_extract, "
+            "whisper_at_tpu_torch.checkpoint, whisper_at_tpu_torch.ops.flops; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'optax', "
+            "'sklearn', 'whisper_at_tpu')]; print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_probe_tool_loads_no_jax():
     """`tools/probe_dma_torch.py` (and `chip_smoke.py`, which it imports)
     load neither JAX nor the JAX package."""
@@ -268,6 +282,37 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         wat.load_model(str(path))
     assert model.device.type == "cpu"
+
+    from whisper_at_tpu_torch.research import feature_extract
+    from whisper_at_tpu_torch.train import loop, run
+    from whisper_at_tpu_torch.train.tltr import TLTR
+
+    head = TLTR(4, 2, 16, "lw_tr_1_4")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        loop.train(head, "lw_tr_1_4", [], [], exp_dir=str(tmp_path / "exp"))
+    card_model = type("CardModel", (), {"device": torch.device("cuda")})()
+    (tmp_path / "data.json").write_text('{"data": []}')
+    with pytest.raises(RuntimeError, match="CUDA"):
+        feature_extract.extract_feature_set(card_model, str(tmp_path / "data.json"),
+                                            str(tmp_path / "feats"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        feature_extract.extract_features_many(card_model, [np.zeros(16000, np.int16)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run.main(["--data-train", "t.json", "--exp-dir", str(tmp_path / "exp")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        loop.load_tltr({"mlp": {"w": np.zeros((16, 4))}}, "mean_mlp")
+    assert not (tmp_path / "exp").exists()
+
+
+def test_training_refuses_a_mesh(tmp_path):
+    from whisper_at_tpu_torch.train import loop, steps
+    from whisper_at_tpu_torch.train.tltr import TLTR
+
+    with pytest.raises(NotImplementedError, match="mesh"):
+        loop.train(TLTR(4, 2, 16, "lw_tr_1_4"), "lw_tr_1_4", [], [], exp_dir=str(tmp_path),
+                   mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="module 18"):
+        steps.make_sharded_train_step(object(), "lw_tr_1_4", None, {})
 
 
 def test_load_model_reads_a_local_reference_checkpoint(tmp_path):

@@ -124,3 +124,29 @@ def test_parse_at_label(both):
     assert len(labels) == 7
     assert labels[0]["time"] == {"start": 0, "end": 10}
     assert len(labels[0]["audio tags"]) == 3
+
+
+def test_transcribe_batched_decodes_exactly_its_windows(pair, monkeypatch):
+    """17 windows decode 17 rows in one `DecodingTask.run`, not the 24 of the
+    JAX package's batch ladder (its copies of the last window bound XLA
+    compiles, which the eager port has none of); the text is the JAX
+    package's."""
+    jm, tm = pair
+    rng = np.random.default_rng(17)
+    t = np.arange(16000 * 30 * 17 - 16000 * 7) / 16000.0
+    x = 0.3 * np.sin(2 * np.pi * 250 * t) + 0.05 * rng.standard_normal(len(t))
+    audio = (np.clip(x, -1, 1) * 32767).astype(np.int16)
+    kw = dict(language="en", temperature=0.0, sample_len=6, fp16=False, max_batch=24,
+              **NO_GATE)
+    rows, run = [], wat.decoding.DecodingTask.run
+
+    def counting(self, mel, *args, **kwargs):
+        rows.append(int(mel.shape[0]))
+        return run(self, mel, *args, **kwargs)
+
+    monkeypatch.setattr(wat.decoding.DecodingTask, "run", counting)
+    out = wat.transcribe_batched(tm, audio, **kw)
+    assert rows == [17]
+    ref = jax_wat.transcribe_batched(jm, audio, **kw)
+    assert out["text"] == ref["text"]
+    assert [s["tokens"] for s in out["segments"]] == [s["tokens"] for s in ref["segments"]]

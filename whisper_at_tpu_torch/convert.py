@@ -83,3 +83,69 @@ def from_jax_params(tree: dict) -> Dict[str, torch.Tensor]:
         _ln(out, "at_model.down_layer.0", head["down_ln"])
         _linear(out, "at_model.down_layer.1", head["down"])
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
+
+
+# --------------------------------------------------------------------------- #
+# the TL-TR research head (train/tltr.py) and its optimizer moments
+# --------------------------------------------------------------------------- #
+
+_BLOCKS = ("time_tr", "layer_tr")
+_FC = {"0": "fc1", "2": "fc2"}
+
+
+def tltr_jax_path(name: str):
+    """Port parameter name of a `train.tltr.TLTR` -> (its path in the JAX
+    package's tree, whether the array is transposed between the two)."""
+    parts = name.split(".")
+    if parts == ["layer_weight"]:
+        return ("layer_weight",), False
+    *owner, leaf = parts
+    if parts[0] in _BLOCKS and len(owner) == 3 and owner[1] == "mlp":
+        owner = [owner[0], "mlp", _FC[owner[2]]]
+    if owner[-1].endswith("_ln"):
+        return (*owner, {"weight": "scale", "bias": "bias"}[leaf]), False
+    return (*owner, {"weight": "w", "bias": "b"}[leaf]), leaf == "weight"
+
+
+def tltr_leaf_to_jax(name: str, value: torch.Tensor) -> np.ndarray:
+    """One TL-TR tensor (a parameter or a moment under its name) as the JAX
+    package's fp32 array."""
+    arr = value.detach().to("cpu", torch.float32).numpy()
+    return (arr.T if tltr_jax_path(name)[1] else arr).copy()
+
+
+def tltr_leaf_from_jax(name: str, arr) -> torch.Tensor:
+    arr = _np(arr)
+    return torch.from_numpy(np.array(arr.T if tltr_jax_path(name)[1] else arr))
+
+
+def tltr_to_jax_params(named) -> dict:
+    """{port name: tensor} of a `train.tltr.TLTR` (its state dict, or any
+    tensors under its parameter names, such as Adam's moments) -> the JAX
+    package's tree of fp32 numpy arrays ([in, out] linear weights)."""
+    tree: dict = {}
+    for name, value in named.items():
+        path = tltr_jax_path(name)[0]
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = tltr_leaf_to_jax(name, value)
+    return tree
+
+
+def tltr_from_jax_params(tree: dict, names) -> Dict[str, torch.Tensor]:
+    """The JAX package's TL-TR tree -> {port name: tensor} for `names` (a
+    `TLTR`'s parameter names, e.g. its `state_dict()` keys)."""
+    out = {}
+    for name in names:
+        node = tree
+        for part in tltr_jax_path(name)[0]:
+            node = node[part]
+        out[name] = tltr_leaf_from_jax(name, node)
+    return out
+
+
+def jax_leaf_order(names) -> list:
+    """`names` in the order `jax.tree.leaves` visits their JAX paths (dict
+    keys sorted at every level)."""
+    return sorted(names, key=lambda n: tltr_jax_path(n)[0])

@@ -1,9 +1,11 @@
 """Audio encoder: conv stem, transformer blocks on K1/K2, pooled taps.
 
-Counterpart of `whisper_at_tpu/models/encoder.py::encoder_apply`. The
-Whisper-AT addition: after every block the hidden states are averaged 20x
-along time, and the per-layer stack [B, L, 75, D] (taken before ln_post)
-feeds the TL-TR head.
+Counterpart of `whisper_at_tpu/models/encoder.py::encoder_apply` and
+`encoder_apply_taps`. The Whisper-AT addition: after every block the hidden
+states are averaged 20x along time, and the per-layer stack [B, L, 75, D]
+(taken before ln_post) feeds the TL-TR head. `encoder_apply_taps` is the
+feature extractor's variant (truncated mel and positional embedding, the
+embedding output as tap 0, no ln_post); both share one block loop.
 
 The attention and MLP implementations are chosen as in the JAX package
 (`whisper_at_tpu/ops/flash.py:37-59`): attn_impl "single" (K1, the
@@ -73,22 +75,26 @@ class AudioEncoder(nn.Module):
         reset_random_(self.blocks, gen)
 
 
-def encoder_apply(encoder: AudioEncoder, mel: torch.Tensor, n_head: int,
-                  compute_dtype=torch.float32, attn_impl: str = "single",
-                  mlp_impl: str = "fused") -> Tuple[torch.Tensor, torch.Tensor]:
-    """mel [B, 80, 3000] -> (features [B, 1500, D] after ln_post,
-    taps [B, L, 75, D]: each block's output pooled 20x, before ln_post)."""
+def _stem(encoder: AudioEncoder, mel: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """mel [B, 80, F] -> [B, F/2, D]: the conv stem and the positional
+    embedding's first F/2 rows."""
+    x = mel.to(compute_dtype)
+    x = gelu(encoder.conv1(x, stride=1))
+    x = gelu(encoder.conv2(x, stride=2))                    # [B, D, T]
+    t = x.shape[2]
+    return (x.transpose(1, 2) + encoder.positional_embedding[:t].to(compute_dtype)).contiguous()
+
+
+def _blocks(encoder: AudioEncoder, x: torch.Tensor, n_head: int, attn_impl: str,
+            mlp_impl: str):
+    """Each block's output in turn, the attention on K1 ("single"), K7
+    ("flash") or the plain attention ("xla"), the MLP half-block on K2
+    ("fused") or the plain chain ("xla")."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl {attn_impl!r} is not one of {ATTN_IMPLS}")
     if mlp_impl not in MLP_IMPLS:
         raise ValueError(f"mlp_impl {mlp_impl!r} is not one of {MLP_IMPLS}")
     attend = {"single": enc_attention, "flash": enc_flash, "xla": attention}[attn_impl]
-    x = mel.to(compute_dtype)
-    x = gelu(encoder.conv1(x, stride=1))
-    x = gelu(encoder.conv2(x, stride=2))                    # [B, D, T]
-    x = (x.transpose(1, 2) + encoder.positional_embedding.to(compute_dtype)).contiguous()
-    b, t, d = x.shape
-    taps = []
     for block in encoder.blocks:
         h = block.attn_ln(x)
         q, k, v = block.attn.query(h), block.attn.key(h), block.attn.value(h)
@@ -99,5 +105,43 @@ def encoder_apply(encoder: AudioEncoder, mel: torch.Tensor, n_head: int,
                         fc1.weight, fc1.bias, fc2.weight, fc2.bias)
         else:
             x = x + fc2(gelu(fc1(block.mlp_ln(x))))
+        yield x
+
+
+def encoder_apply(encoder: AudioEncoder, mel: torch.Tensor, n_head: int,
+                  compute_dtype=torch.float32, attn_impl: str = "single",
+                  mlp_impl: str = "fused") -> Tuple[torch.Tensor, torch.Tensor]:
+    """mel [B, 80, 3000] -> (features [B, 1500, D] after ln_post,
+    taps [B, L, 75, D]: each block's output pooled 20x, before ln_post)."""
+    x = _stem(encoder, mel, compute_dtype)
+    b, t, d = x.shape
+    taps = []
+    for x in _blocks(encoder, x, n_head, attn_impl, mlp_impl):
         taps.append(x.reshape(b, t // POOL, POOL, d).mean(dim=2))
     return encoder.ln_post(x), torch.stack(taps, dim=1)
+
+
+TAP_MODES = ("last", "all_nopool", "all_pool")
+
+
+def encoder_apply_taps(encoder: AudioEncoder, mel: torch.Tensor, n_head: int,
+                       tap_mode: str = "all_nopool", compute_dtype=torch.float32,
+                       attn_impl: str = "single", mlp_impl: str = "fused") -> torch.Tensor:
+    """The feature-extraction encoder (`whisper_at_tpu/models/encoder.py::
+    encoder_apply_taps`): mel [B, 80, F] of any F up to 3000, the positional
+    embedding cut to the F/2 positions, no ln_post, the embedding output
+    kept as tap 0. The blocks are `encoder_apply`'s, on the same kernels.
+
+    tap_mode 'last' -> [B, T, D] the last block's output; 'all_nopool' ->
+    [B, L+1, T, D] the embedding and every block's output; 'all_pool' ->
+    [B, L+1, D] their means over time."""
+    if tap_mode not in TAP_MODES:
+        raise ValueError(f"Unknown tap_mode: {tap_mode}")
+    x = _stem(encoder, mel, compute_dtype)
+    taps = [x]
+    for x in _blocks(encoder, x, n_head, attn_impl, mlp_impl):
+        taps.append(x)
+    if tap_mode == "last":
+        return x
+    all_x = torch.stack(taps, dim=1)
+    return all_x.mean(dim=2) if tap_mode == "all_pool" else all_x

@@ -182,8 +182,10 @@ class TranscriptionService:
     def warmup(self, *, buckets=None, clip_seconds: float = 1.0, **overrides) -> dict:
         """Make the first requests pay no build: on the card, compile every
         kernel (`ops.cuda.build_all`), then run `transcribe_many` once with
-        k one-window tone clips for each k of the decode's batch ladder (or
-        `buckets`), under the service's options (`overrides` win). Bypasses
+        k one-window tone clips for each k of the JAX package's batch ladder
+        (1, 2, 4, 8, 16, max_batch; the decode itself takes exactly its
+        windows) or of `buckets`, under the service's options (`overrides`
+        win). Bypasses
         the scheduler, so the stats are untouched. Returns {k: seconds}."""
         if self.model.device.type == "cuda":
             from .ops import cuda

@@ -126,7 +126,9 @@ def _mel_to_windows(mel: torch.Tensor):
 
 
 def _batch_bucket(n: int, max_batch: int) -> int:
-    """Smallest batch of the ladder 1, 2, 4, 8, 16, max_batch that holds n rows."""
+    """Smallest batch of the JAX package's ladder 1, 2, 4, 8, 16, max_batch
+    that holds n rows: the request sizes `TranscriptionService.warmup` runs
+    by default. The decode itself takes exactly its windows."""
     ladder = [b for b in (1, 2, 4, 8, 16) if b < max_batch] + [max_batch]
     return next(b for b in ladder if b >= n)
 
@@ -143,11 +145,11 @@ def _decode_windows_batched(model, windows: torch.Tensor, temperature, gate: Qua
             break
         task = DecodingTask(model, DecodingOptions(**kwargs, temperature=t))
         for lo in range(0, len(pending), max_batch):
+            # exactly the chunk's windows: the JAX package pads a chunk with
+            # copies of its last row up to `_batch_bucket` to bound XLA
+            # compiles, which an eager port does not need
             chunk = pending[lo:lo + max_batch]
-            # pad with copies of the last row to a bucketed batch size (the
-            # copies are decoded and dropped), as the JAX package does
-            rows = chunk + [chunk[-1]] * (_batch_bucket(len(chunk), max_batch) - len(chunk))
-            batch = windows[torch.tensor(rows, device=windows.device)]
+            batch = windows[torch.tensor(chunk, device=windows.device)]
             for w, r in zip(chunk, task.run(batch)):
                 results[w] = r
         pending = [w for w in pending if gate.needs_fallback(results[w])]
