@@ -24,9 +24,10 @@ hot, labelled); K8 and K8-int8 the same way, a CUDA graph of one call per
 layer over 32 layers' own weight pairs, at 24, 96 and 120 rows beside the
 unfused MLP they replace (`k8_points`, hot figures beside, labelled); K4,
 K10 and their int4 entries over K/V sets used in
-turn, eager and in CUDA graphs, at the greedy step and a beam step at
-batch 24 and at the sequential call's single audio row
-(`cross_decode_points`), each K4 point printed beside K10 on the same
+turn, eager and in CUDA graphs, at the greedy step, a beam step and the
+speculative verify pass (G = 9) at batch 24 and at the sequential call's
+single audio row (`cross_decode_points`), each K4 point printed beside K10
+on the same
 bytes, the bound, the split of the positions K4 chose and the kernel
 before its redesign as recorded (K4_BEFORE). Then it drives the port's paths at
 large-v1 full width with random weights from a seeded generator over
@@ -63,6 +64,19 @@ before and read just after, and checks its output:
     sampling) for 2 epochs with validation, `wa_model` and its validation,
     a resumed third epoch, one step in fp32 beside bf16, and the step's
     time against its bound;
+(13) the command line (`cli_check`): the model saved as a reference `.pt`,
+    then `whisper_at_tpu_torch.cli.cli` in this process with its defaults
+    (beam 5) over one 60 s WAV sequentially with highlighted word
+    timestamps (K1, K2, K6) and over three WAVs of 20-70 s with
+    `--batched True` (K1, K2); never K3 or K4. Each file's txt, vtt, srt,
+    tsv and json parse and agree, every time lies in the 30 s window it was
+    decoded from, the json carries the tags;
+(14) speculative decoding (`spec_check`): the headline's windows at 96
+    full-length tokens without the int8 self cache, greedy, with a random
+    tiny draft and with the model as its own draft (K1-K4, K4 at G = 9 on
+    the verify passes); each draft call's rows equal greedy's or differ
+    first at a near tie, within twice the measured rounding noise between a
+    verify pass and the single steps over the same prefix;
 (9) the streaming probe: `tools/probe_dma_torch.py`'s `probe` at the JAX
     probe's defaults (512 MiB int8 in 1 MiB chunks, the same numpy draw):
     P1 and P2 (cp.async and TMA rings at depths 2, 4, 8), each bitwise
@@ -127,6 +141,10 @@ HEADLINE_OPTS = dict(language="en", temperature=0.0, sample_len=TOKENS, fp16=Tru
 # the int4 call: every int4 decode option (the headline-int4all-optin row)
 INT4_OPTS = dict(HEADLINE_OPTS, kv_bits=4, weight_bits=4, self_kv_bits=4)
 BEAM = 5
+# speculative decoding's lookahead (the default) and K4's query rows a head
+# on its verify pass
+SPEC_LOOKAHEAD = 8
+SPEC_G = SPEC_LOOKAHEAD + 1
 # K5's weight shapes at large-v1, (K, N): qkv, attention out / cross query /
 # cross out (one shape), fc1, fc2; its rows: a greedy step, the prefill
 W4_SHAPES = dict(qkv=(D, 3 * D), out=(D, D), fc1=(D, 4 * D), fc2=(4 * D, D))
@@ -324,14 +342,23 @@ def k4_bound(a: int, groups: int, bits: int):
 
 
 # the points at which K4 and K10 are timed cold: (A, G), the greedy step at
-# batch 24, a beam step and the sequential call's step
-K4_POINTS = ((BATCH, 1), (BATCH, BEAM), (1, 1))
+# batch 24, a beam step, the sequential call's step and the speculative
+# call's verify pass (lookahead 8: G = 9)
+K4_POINTS = ((BATCH, 1), (BATCH, BEAM), (1, 1), (BATCH, SPEC_G))
 # K4 and K4-int4 before their redesign (git 5094ee7) at K4_POINTS: ms cold,
 # eager over the K/V sets (`cross_decode_points`), the mean of two runs
 # recorded on an NVIDIA H100 80GB HBM3 at 700 W, not measured in the run
 # that prints them
 K4_BEFORE = {8: {(BATCH, 1): 0.0882, (BATCH, BEAM): 0.1472, (1, 1): 0.0388},
              4: {(BATCH, 1): 0.0786, (BATCH, BEAM): 0.1390, (1, 1): 0.0377}}
+
+
+def before_k4(bits: int, a: int, groups: int) -> str:
+    ms = K4_BEFORE[bits].get((a, groups))
+    if ms is None:
+        return "no time before its redesign recorded at this point"
+    return (f"before its redesign {ms:.4f} ms eager (recorded: git 5094ee7, NVIDIA H100 80GB "
+            f"HBM3 at 700 W; not this run)")
 
 
 def cross_decode_points(randn, kv, bias, bits: int) -> dict:
@@ -1225,7 +1252,7 @@ def k4_row(card: str, randn, kv, bias, bits: int):
     row = tuple(t[:1].contiguous() for t in kv)
     errs, tols = [], []
     for a, groups, args in [(BATCH, 4, kv), (BATCH, BEAM, kv), (1, BEAM, row), (1, 1, row),
-                            (BATCH, 1, kv)]:
+                            (BATCH, 1, kv), (BATCH, SPEC_G, kv)]:
         qd = randn(a, H * groups, DH, scale=DH ** -0.5)
         e, tol = k4_compare(qd, *args, bias, H, bits)
         errs.append(e)
@@ -1241,9 +1268,8 @@ def k4_row(card: str, randn, kv, bias, bits: int):
               f"({p['k4'] / p['k10']:.3f}x), {p['k10_graph']:.4f} ms in a graph "
               f"({p['k4_graph'] / p['k10_graph']:.3f}x), host {p['k10_host']:.4f} ms; "
               f"{100 * p['bound'][0] / p['k4']:.1f}% of "
-              f"the {p['bound'][0]:.4f} ms bound; before its redesign "
-              f"{K4_BEFORE[bits][(a, groups)]:.4f} ms eager (recorded: git 5094ee7, NVIDIA H100 "
-              f"80GB HBM3 at 700 W; not this run); {'tensor' if tensor_cores else 'CUDA'} cores, "
+              f"the {p['bound'][0]:.4f} ms bound; {before_k4(bits, a, groups)}; "
+              f"{'tensor' if tensor_cores else 'CUDA'} cores, "
               f"stages of {chunk}, {n_split} run(s) of {per} stage(s)"
               f"{f' (a cluster of {n_split})' if n_split > 1 else ''} [{card}]", flush=True)
     greedy = points[(BATCH, 1)]
@@ -2156,6 +2182,289 @@ def training_check(card: str, model) -> None:
           flush=True)
 
 
+# the command-line phase: one 60 s file sequential with words, three files
+# batched, the CLI's defaults otherwise (beam 5 at T = 0)
+CLI_SEQUENTIAL_S = 60
+CLI_BATCHED_S = (20, 45, 70)
+CLI_FLAGS = ["--language", "en", "--temperature_increment_on_fallback", "None", "-f", "all",
+             "--verbose", "False"]
+CLI_KERNELS = ("K1", "K2")
+# the speculative phase: the headline's windows with full-length text and the
+# headline's options but the int8 self cache, which the draft rules refuse
+SPEC_NOISE_AT = (1, 40, 80)  # verify-pass positions at which the rounding noise is measured
+
+
+def check_cli_outputs(out_dir: str, path: str, seconds: float, words: bool) -> dict:
+    """The five files the command line wrote for one audio: the text, the
+    subtitles' cues and the tsv parse, and their times agree with the json;
+    every segment and word time lies in the 30 s window it was decoded from,
+    and that window starts inside the audio; the json carries the tags.
+    Returns counts for the printout."""
+    import re
+
+    stem = os.path.splitext(os.path.basename(path))[0]
+    read = {ext: open(os.path.join(out_dir, f"{stem}.{ext}"), encoding="utf-8").read()
+            for ext in ("txt", "vtt", "srt", "tsv", "json")}
+    result = json.loads(read["json"])
+    segs = result["segments"]
+    tags = np.asarray(result["audio_tag"], dtype=np.float32)
+    if tags.shape != (-(-int(seconds) // 10), 527) or not np.isfinite(tags).all():
+        raise AssertionError(f"{stem}.json: audio_tag {tags.shape} not finite or not "
+                             f"[{-(-int(seconds) // 10)}, 527]")
+    if read["txt"] != "".join(s["text"].strip() + "\n" for s in segs):
+        raise AssertionError(f"{stem}.txt is not the segments' text")
+    tsv = read["tsv"].splitlines()
+    if tsv[0] != "start\tend\ttext" or len(tsv) != len(segs) + 1 or any(
+            [int(a), int(b)] != [round(1000 * s["start"]), round(1000 * s["end"])]
+            for (a, b, *_), s in zip((ln.split("\t") for ln in tsv[1:]), segs)):
+        raise AssertionError(f"{stem}.tsv does not hold the segments' times")
+    stamp = r"(\d\d:)?\d\d:\d\d[.,]\d\d\d"
+    vtt_cues = re.findall(rf"^{stamp} --> {stamp}$", read["vtt"], re.M)
+    srt_cues = re.findall(rf"^\d+\n{stamp} --> {stamp}$", read["srt"], re.M)
+    if not read["vtt"].startswith("WEBVTT\n") or len(vtt_cues) != len(srt_cues):
+        raise AssertionError(f"{stem}.vtt / .srt do not parse as the same cues")
+    times, past_end = [], 0
+    for seg in segs:
+        lo = seg["seek"] / 100
+        if not lo < seconds:
+            raise AssertionError(f"{stem}: a window starts at {lo} s, past the audio")
+        seg_times = [seg["start"], seg["end"]] + [t for w in seg.get("words", [])
+                                                  for t in (w["start"], w["end"])]
+        if not all(lo <= t <= lo + 30 for t in seg_times) or seg["start"] > seg["end"]:
+            raise AssertionError(f"{stem}: times {seg_times} outside their window "
+                                 f"[{lo}, {lo + 30}]")
+        past_end += sum(t > seconds for t in seg_times)
+        times += seg_times
+    n_words = sum(len(s.get("words", [])) for s in segs)
+    if words and (n_words == 0 or "<u>" not in read["srt"]):
+        raise AssertionError(f"{stem}: no words, or no highlighted cue")
+    return dict(segments=len(segs), words=n_words, cues=len(srt_cues), past_end=past_end)
+
+
+def cli_check(card: str, model) -> None:
+    """(13) The command line at large-v1 full width, in a temporary
+    directory: the random model saved as a reference checkpoint (.pt, bf16),
+    then the port's `cli([...])` in this process, each call counted
+    (`run_counted`) with its kernel inputs recorded and held against the
+    plain versions: sequential over one 60 s WAV with word timestamps and
+    highlighted words (K1, K2, K6), and `--batched True` over three files of
+    20-70 s (K1, K2); never K3 or K4, since the command line decodes on the
+    plain cross K/V, as the JAX one does. Every file's five outputs parse
+    and agree (`check_cli_outputs`)."""
+    import tempfile
+
+    from whisper_at_tpu_torch.cli import cli
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root:
+        t0 = time.perf_counter()
+        ckpt = os.path.join(root, "large-v1-random.pt")
+        torch.save({"dims": vars(model.dims), "model_state_dict": model.state_dict()}, ckpt)
+        save_s = time.perf_counter() - t0
+        runs = [("sequential", [CLI_SEQUENTIAL_S], ["--word_timestamps", "True",
+                                                    "--highlight_words", "True"],
+                 CLI_KERNELS + ("K6",)),
+                ("batched", list(CLI_BATCHED_S), ["--batched", "True"], CLI_KERNELS)]
+        for label, lengths, flags, kernel_ids in runs:
+            paths = []
+            for i, seconds in enumerate(lengths):
+                paths.append(os.path.join(root, f"{label}_{i}.wav"))
+                with open(paths[-1], "wb") as f:
+                    f.write(wav_body(synth_audio(seconds, SEED + 30 + i)))
+            out = os.path.join(root, f"out_{label}")
+            argv = [*paths, "--model", ckpt, "--output_dir", out, *CLI_FLAGS, *flags]
+            torch.cuda.reset_peak_memory_stats()
+            with Recorder() as rec:
+                _, seconds, counts = run_counted(lambda: cli(argv), kernel_ids, ("K3", "K4"))
+            peak = torch.cuda.max_memory_allocated()
+            checks = [check_cli_outputs(out, p, s, "--word_timestamps" in flags)
+                      for p, s in zip(paths, lengths)]
+            print(f"command line ({label}) {SIZE}: {len(paths)} file(s) of {lengths} s in "
+                  f"{seconds:.3f} s, {seconds / len(paths):.3f} s a file (the model's load "
+                  f"from a {os.path.getsize(ckpt) / 2**30:.2f} GiB .pt included; saving it "
+                  f"took {save_s:.1f} s), {sum(lengths) / seconds:.2f} audio-s/s; outputs "
+                  f"{checks}; peak memory {peak / 2**30:.2f} GiB, launches {counts} [{card}]",
+                  flush=True)
+            hold_path_inputs(card, f"command line ({label})", rec.inputs)
+            del rec
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def decoded_tokens():
+    """The tokens of every window each `DecodingTask.run` of the block
+    decoded, in window order (a list, filled as the block runs)."""
+    from whisper_at_tpu_torch.decoding import DecodingTask
+
+    tokens, run = [], DecodingTask.run
+
+    def keeping(self, mel):
+        results = run(self, mel)
+        tokens.extend(list(r.tokens) for r in results)
+        return results
+
+    DecodingTask.run = keeping
+    try:
+        yield tokens
+    finally:
+        DecodingTask.run = run
+
+
+def verify_noise_and_gaps(model, windows, tokens, opts: dict) -> tuple:
+    """(noise, gaps): the largest difference between a logit of the verify
+    pass over L + 1 tokens (`decoder_forward_rows`, K4 at G = L + 1) and the
+    same logit of the single steps over the same prefix (`decoder_forward`,
+    K4 at G = 1), at the SPEC_NOISE_AT positions of every window; and the
+    top-two gap of the greedy call's filtered logits at each of its steps,
+    [BATCH, steps], from the single steps teacher-forced on its tokens (the
+    greedy loop's own passes)."""
+    from whisper_at_tpu_torch import decoding
+    from whisper_at_tpu_torch.models.decoder import (
+        decoder_forward,
+        decoder_forward_rows,
+        init_cache,
+        precompute_cross_kv,
+        project_logits,
+    )
+
+    task = decoding.DecodingTask(model, decoding.DecodingOptions(**{
+        k: v for k, v in opts.items() if k in decoding.DecodingOptions.__dataclass_fields__}))
+    dtype = model.compute_dtype(True)
+    feats, _ = model.embed_audio(windows, True)
+    params = model.decoder_params_decode(opts["weight_quant"])
+    cross = precompute_cross_kv(params, feats, H, dtype, quantize=opts["kv_quant"])
+    init = list(task.initial_tokens)
+    prefill = decoding._prefill_bucket(len(init))
+    pad = prefill - len(init)
+    steps = min(len(t) for t in tokens)
+    sampled = torch.tensor([t[:steps] for t in tokens], device=windows.device)
+    buf = torch.zeros((BATCH, prefill + steps + SPEC_G), dtype=torch.long,
+                      device=windows.device)
+    buf[:, pad:prefill] = torch.tensor(init, device=windows.device)
+    buf[:, prefill:prefill + steps] = sampled
+    total = buf.shape[1]
+    filt = dict(eot=task.tokenizer.eot, ts_begin=task.tokenizer.timestamp_begin,
+                blank_token=task.blank_token, max_initial_ts_index=task.max_initial_ts_index,
+                suppress_blank=task.options.suppress_blank, with_ts_rules=task.with_ts_rules)
+
+    def prefilled():
+        cache = init_cache(len(params.blocks), BATCH, total, D, dtype, H, device=windows.device)
+        hidden = decoder_forward(params, buf[:, :prefill], cross, cache, 0, pad, H, dtype)
+        return cache, project_logits(params, hidden[:, -1:])[:, 0]
+
+    # the greedy loop's logits, step by step, and their filtered top-two gaps
+    cache, logits = prefilled()
+    step_logits, gaps = [logits], []
+    last_ts = torch.full((BATCH,), -1, dtype=torch.long, device=windows.device)
+    for t in range(steps):
+        slot = prefill + t
+        f = decoding.apply_logit_filters(logits, t, buf[:, slot - 1], buf[:, slot - 2],
+                                         last_ts, task.suppress_mask, **filt)
+        top2 = f.topk(2, dim=-1).values
+        gaps.append((top2[:, 0] - top2[:, 1]).float())
+        token = buf[:, slot]
+        last_ts = torch.where(token >= filt["ts_begin"], token, last_ts)
+        hidden = decoder_forward(params, token[:, None], cross, cache, slot, pad, H, dtype)
+        logits = project_logits(params, hidden)[:, 0]
+        step_logits.append(logits)
+    noise = 0.0
+    for p in SPEC_NOISE_AT:
+        if p + SPEC_G > steps:
+            continue
+        cache, _ = prefilled()
+        for t in range(p - 1):  # the cache valid over the committed prefix
+            decoder_forward(params, buf[:, prefill + t:prefill + t + 1], cross, cache,
+                            prefill + t, pad, H, dtype)
+        write = torch.full((BATCH,), prefill + p - 1, device=windows.device)
+        vh = decoder_forward_rows(params, buf[:, prefill + p - 1:prefill + p - 1 + SPEC_G],
+                                  cross, cache, write, pad, H, dtype)
+        vlog = project_logits(params, vh)
+        ref = torch.stack(step_logits[p:p + SPEC_G], dim=1)
+        noise = max(noise, float((vlog - ref).abs().max()))
+    return noise, torch.stack(gaps, dim=1).cpu().numpy()
+
+
+def spec_check(card: str, model) -> dict:
+    """(14) Speculative decoding at large-v1 full width: the headline's 24
+    windows at 96 full-length tokens (`full_text_opts`) with the headline's
+    options but the int8 self cache (the draft rules refuse it), three
+    `transcribe_batched` calls in this process: (a) greedy, (b) a random
+    tiny draft of another seed (its agreement is about nil: the loop's
+    overhead bound), (c) the model as its own draft (bf16 unquantized drafts
+    against the int8 verifier). (b) and (c) are counted (K1, K2, K3, K4),
+    their kernel inputs recorded and held against the plain versions, and K4
+    must have run at G = L + 1 = 9 on their verify passes. Each row of (b)
+    and (c) equals (a)'s, or differs first where (a)'s filtered top-two gap
+    is within twice the measured rounding noise between a verify pass and
+    the single steps (`verify_noise_and_gaps`): the two sum in different
+    orders, so a near tie may flip; the rows that differ are counted and
+    printed, and any other difference fails. Returns K4's G = 9 inputs'
+    launches a call and the rates."""
+    import whisper_at_tpu_torch as wat
+    from whisper_at_tpu_torch import decoding
+    from whisper_at_tpu_torch.audio import N_SAMPLES, log_mel_spectrogram
+    from whisper_at_tpu_torch.transcribe import _mel_to_windows
+
+    audio = synth_audio(BATCH * 30, SEED)
+    opts = {k: v for k, v in full_text_opts(model).items() if k != "self_kv_quant"}
+    draft = wat.build_model("tiny", device="cuda", dtype=torch.bfloat16, seed=SEED + 1)
+    seconds_audio = len(audio) / 16000
+    calls = {}
+    for label, d in (("(a) greedy", None), ("(b) tiny draft", draft), ("(c) self draft", model)):
+        kw = dict(opts, draft_model=d, draft_lookahead=SPEC_LOOKAHEAD) if d is not None else opts
+        torch.cuda.reset_peak_memory_stats()
+        with Recorder() as rec, decoded_tokens() as tokens:
+            result, seconds, counts = run_counted(
+                lambda: wat.transcribe_batched(model, audio, **kw), HEADLINE_KERNELS)
+        check_segments(result, len(audio), words=False)
+        if len(tokens) != BATCH or min(map(len, tokens)) != TOKENS:
+            raise AssertionError(f"{label}: decoded {len(tokens)} windows of "
+                                 f"{sorted(set(map(len, tokens)))} tokens")
+        g9 = [args for args in rec.inputs["K4"] if args[0].shape[1] == H * SPEC_G]
+        if d is not None:
+            if not g9:
+                raise AssertionError(f"{label}: K4 never ran at G = {SPEC_G}")
+            hold_path_inputs(card, f"speculative {label}", rec.inputs)
+        calls[label] = dict(
+            tokens=tokens, seconds=seconds,
+            rate=seconds_audio / seconds, counts=counts, g9=len(g9),
+            stats=decoding._LAST_SPEC_STATS if d is not None else None,
+            peak=torch.cuda.max_memory_allocated())
+        del rec
+    greedy = calls["(a) greedy"]
+    windows, _ = _mel_to_windows(log_mel_spectrogram(audio, padding=N_SAMPLES,
+                                                     device=model.device))
+    noise, gaps = verify_noise_and_gaps(model, windows, greedy["tokens"], opts)
+    k4_name = kernels_of(["K4"])[0]
+    for label in ("(b) tiny draft", "(c) self draft"):
+        c = calls[label]
+        differing = []
+        for row, (ref, got) in enumerate(zip(greedy["tokens"], c["tokens"])):
+            if ref == got:
+                continue
+            first = next((i for i, (x, y) in enumerate(zip(ref, got)) if x != y),
+                         min(len(ref), len(got)))
+            gap = float(gaps[row, first]) if first < gaps.shape[1] else float("inf")
+            if not gap <= 2 * noise:
+                raise AssertionError(f"{label}: window {row} differs from greedy first at "
+                                     f"token {first}, where greedy's top-two gap {gap:.4g} "
+                                     f"exceeds twice the rounding noise {noise:.4g}")
+            differing.append((row, first, round(gap, 5)))
+        s = c["stats"]
+        print(f"speculative {label} {SIZE} batch {BATCH}, lookahead {SPEC_LOOKAHEAD}: "
+              f"{seconds_audio:.0f} s audio in {c['seconds']:.3f} s = {c['rate']:.2f} "
+              f"audio-s/s ({c['rate'] / greedy['rate']:.3f}x greedy's {greedy['rate']:.2f}, "
+              f"{greedy['seconds']:.3f} s); {s['rounds']} rounds, {s['commits']} commits, "
+              f"{s['tokens_per_round']:.2f} tokens a round ({s['tokens_per_round'] / BATCH:.2f}"
+              f" a row); {len(differing)} of {BATCH} windows differ from greedy {differing} "
+              f"(each within twice the verify-vs-step rounding noise {noise:.4g}); K4 "
+              f"{c['counts'][k4_name]} launches ({c['g9']} recorded shape(s) at G = {SPEC_G}), "
+              f"peak memory {c['peak'] / 2**30:.2f} GiB, launches {c['counts']} [{card}]",
+              flush=True)
+    del draft
+    torch.cuda.empty_cache()
+    return calls
+
+
 @contextlib.contextmanager
 def switches_on():
     """The JAX package's three switches on (`SWITCH_ENV` and
@@ -2294,6 +2603,8 @@ def main() -> int:
     serving_check(card, model, rate)
     streaming_check(card, model, rate)
     training_check(card, model)
+    cli_check(card, model)
+    spec_check(card, model)
     probe_rows, probe_counts = probe_check(card)
     rows.update(probe_rows)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to here [{card}]",

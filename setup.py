@@ -43,6 +43,7 @@ setup(
         "console_scripts": [
             "whisper_at_tpu=whisper_at_tpu.transcribe:cli",
             "whisper_at_tpu_serve=whisper_at_tpu.serving:main",
+            "whisper_at_tpu_torch=whisper_at_tpu_torch.cli:cli",
         ],
     },
 )

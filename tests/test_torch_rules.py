@@ -48,7 +48,9 @@ def test_import_loads_no_jax():
             "whisper_at_tpu_torch.ops.fused_mlp, whisper_at_tpu_torch.ops.flash_decode, "
             "whisper_at_tpu_torch.ops.cross_decode_stream, whisper_at_tpu_torch.ops.probe_dma, "
             "whisper_at_tpu_torch.serving, whisper_at_tpu_torch.streaming, "
-            "whisper_at_tpu_torch.utils.profiling, whisper_at_tpu_torch.audio; "
+            "whisper_at_tpu_torch.utils.profiling, whisper_at_tpu_torch.audio, "
+            "whisper_at_tpu_torch.cli, whisper_at_tpu_torch.normalizers, "
+            "whisper_at_tpu_torch.utils.writers, whisper_at_tpu_torch.version; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
             "'whisper_at_tpu')]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -86,7 +88,8 @@ def test_probe_tool_loads_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-@pytest.mark.parametrize("tool", ["time_k3.py", "time_k8.py", "time_k6_k9.py"])
+@pytest.mark.parametrize("tool", ["time_k3.py", "time_k8.py", "time_k6_k9.py",
+                                  "profile_spec_torch.py"])
 def test_timing_tools_load_no_jax(tool):
     """The kernel timing tools, with `chip_smoke.py` that their `main`
     imports, load neither JAX nor the JAX package."""
@@ -281,7 +284,13 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     torch.save({"dims": vars(model.dims), "model_state_dict": model.state_dict()}, path)
     with pytest.raises(RuntimeError, match="CUDA"):
         wat.load_model(str(path))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        wat.load_model("tiny", download_root=str(tmp_path))  # before any file lookup
     assert model.device.type == "cpu"
+    from whisper_at_tpu_torch.cli import cli
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli([str(tmp_path / "a.wav"), "--model", str(path), "--output_dir", str(tmp_path)])
 
     from whisper_at_tpu_torch.research import feature_extract
     from whisper_at_tpu_torch.train import loop, run
@@ -335,7 +344,6 @@ def test_load_model_reads_a_local_reference_checkpoint(tmp_path):
 
 @pytest.mark.parametrize("kwargs, what", [
     (dict(mesh=object()), "mesh"),
-    (dict(draft_model=object()), "speculative"),
     (dict(kv_layout="heads", kv_quant=True), "fused"),
 ])
 def test_unported_options_raise(kwargs, what):
@@ -355,17 +363,43 @@ def test_unported_options_raise(kwargs, what):
     dict(kv_bits=6),
     dict(weight_bits=2),
     dict(self_kv_bits=16),
+    dict(draft="same", temperature=0.4),
+    dict(draft="same", beam_size=2),
+    dict(draft="same", temperature=0.4, best_of=2),
+    dict(draft="same", self_kv_quant=True),
+    dict(draft="same", draft_lookahead=0),
+    dict(draft="english"),
 ])
 def test_option_rules_match_jax(options):
     """The options the JAX package refuses with ValueError, the port refuses
-    the same way."""
+    the same way. The draft model's rules read the models (its vocabulary
+    against the verifier's), so those cases build a task on a model in
+    each package."""
     from whisper_at_tpu.decoding import DecodingOptions as JaxOptions
     from whisper_at_tpu.decoding import DecodingTask as JaxTask
+    from whisper_at_tpu.models.dims import ModelDimensions as JaxDims
+    from whisper_at_tpu.models.whisper import Whisper as JaxWhisper
 
+    options = dict(options)
+    draft = options.pop("draft", None)
+    if draft is None:
+        with pytest.raises(ValueError):
+            JaxTask._verify_options(None, JaxOptions(**options))
+        with pytest.raises(ValueError):
+            wat.decoding.DecodingTask._verify_options(None, wat.DecodingOptions(**options))
+        return
+    dims = dict(n_mels=80, n_audio_ctx=1500, n_audio_state=64, n_audio_head=2,
+                n_audio_layer=1, n_vocab=51865, n_text_ctx=448, n_text_head=2,
+                n_text_state=64, n_text_layer=1)
+    draft_dims = dict(dims, n_vocab=51864) if draft == "english" else dims
+    jax_pair = [JaxWhisper(JaxDims(**d), seed=1) for d in (dims, draft_dims)]
+    port_pair = [wat.build_model("", device="cpu", dims=wat.ModelDimensions(**d))
+                 for d in (dims, draft_dims)]
     with pytest.raises(ValueError):
-        JaxTask._verify_options(None, JaxOptions(**options))
+        JaxTask(jax_pair[0], JaxOptions(draft_model=jax_pair[1], **options))
     with pytest.raises(ValueError):
-        wat.decoding.DecodingTask._verify_options(wat.DecodingOptions(**options))
+        wat.decoding.DecodingTask(port_pair[0], wat.DecodingOptions(draft_model=port_pair[1],
+                                                                     **options))
 
 
 def test_unported_entry_points_raise():

@@ -8,6 +8,7 @@ from functools import lru_cache
 
 import numpy as np
 
+from .languages import LANGUAGES
 from .tokenizer import ASSETS
 
 
@@ -41,3 +42,15 @@ def parse_at_label(result: dict, language: str = "follow_asr", top_k: int = 5,
                 if row[j] > p_threshold and int(j) in include]
         out.append({"time": {"start": i * res, "end": (i + 1) * res}, "audio tags": kept})
     return out
+
+
+def print_label_name(language: str = "en") -> None:
+    """Print the 527 class names of `language` with their indices."""
+    for i, name in enumerate(_label_names()[language]):
+        print("index: {:d} : {:s}".format(i, name))
+
+
+def print_support_language() -> None:
+    """Print the language codes the label table has names in."""
+    for key in _label_names():
+        print("language code: {:s} : {:s}".format(key, LANGUAGES[key]))

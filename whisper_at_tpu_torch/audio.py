@@ -1,12 +1,17 @@
-"""Audio frontend: WAV decode, pad/trim, prefetch, and the public log-mel
+"""Audio frontend: file decode, pad/trim, prefetch, and the public log-mel
 API.
 
-Only PCM WAV files are decoded (with the standard `wave` module); there is
-no ffmpeg dependency. Waveforms may be passed as arrays instead: int16 PCM
-or float32 in [-1, 1] at 16 kHz, or as a `PrefetchedAudio` whose copy to
-the device is already under way (`prefetch_audio`).
+PCM WAV files (`.wav`) are decoded with the standard `wave` module. Any
+other file goes through the `ffmpeg` program when it is on PATH, with the
+JAX package's command line (mono int16 at 16 kHz; float = int16 / 32768),
+and raises RuntimeError naming the missing tool and the file when it is
+not: there is no other decoder. Waveforms may be passed as arrays instead:
+int16 PCM or float32 in [-1, 1] at 16 kHz, or as a `PrefetchedAudio` whose
+copy to the device is already under way (`prefetch_audio`).
 """
 
+import shutil
+import subprocess
 import wave
 from concurrent.futures import ThreadPoolExecutor
 from typing import BinaryIO, Union
@@ -46,15 +51,31 @@ def _resample(x: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
     return resample_poly(x, target_sr // g, orig_sr // g).astype(np.float32)
 
 
-def _require_wav(file: str) -> None:
-    if not file.lower().endswith(".wav"):
-        raise RuntimeError(f"only PCM WAV files can be decoded, not {file!r}")
+def _is_wav(file: str) -> bool:
+    return file.lower().endswith(".wav")
+
+
+def _ffmpeg_pcm16(file: str, sr: int) -> np.ndarray:
+    """Any container or codec as mono int16 PCM at `sr` Hz, through ffmpeg
+    (the JAX package's command line); raises when ffmpeg is not on PATH."""
+    if shutil.which("ffmpeg") is None:
+        raise RuntimeError(f"ffmpeg is not on PATH, and only PCM WAV files are decoded "
+                           f"without it: cannot load {file!r}")
+    cmd = ["ffmpeg", "-nostdin", "-threads", "0", "-i", file, "-f", "s16le", "-ac", "1",
+           "-acodec", "pcm_s16le", "-ar", str(sr), "-"]
+    try:
+        out = subprocess.run(cmd, capture_output=True, check=True).stdout
+    except subprocess.CalledProcessError as e:
+        raise RuntimeError(f"Failed to load audio: {e.stderr.decode()}") from e
+    return np.frombuffer(out, np.int16).flatten()
 
 
 def load_audio(file: str, sr: int = SAMPLE_RATE) -> np.ndarray:
-    """Mono float32 waveform at `sr` Hz from a PCM WAV file (8/16/24/32-bit)."""
-    _require_wav(file)
-    return decode_wav(file, sr)
+    """Mono float32 waveform at `sr` Hz from a PCM WAV file (8/16/24/32-bit),
+    or from any other audio file through ffmpeg."""
+    if _is_wav(file):
+        return decode_wav(file, sr)
+    return _ffmpeg_pcm16(file, sr).astype(np.float32) / 32768.0
 
 
 def decode_wav(file: Union[str, BinaryIO], sr: int = SAMPLE_RATE) -> np.ndarray:
@@ -92,10 +113,12 @@ def decode_wav_pcm16(file: Union[str, BinaryIO], sr: int = SAMPLE_RATE) -> np.nd
 
 def load_audio_pcm16(file: str, sr: int = SAMPLE_RATE) -> np.ndarray:
     """A PCM WAV file as int16 when that loses nothing (16-bit mono at
-    `sr`), else as `load_audio`'s float32. int16 goes to the card at half
-    the bytes and is dequantized there to `load_audio`'s values."""
-    _require_wav(file)
-    return decode_wav_pcm16(file, sr)
+    `sr`), else as `load_audio`'s float32; any other file as ffmpeg's int16.
+    int16 goes to the card at half the bytes and is dequantized there to
+    `load_audio`'s values."""
+    if _is_wav(file):
+        return decode_wav_pcm16(file, sr)
+    return _ffmpeg_pcm16(file, sr)
 
 
 def prefetch_audio(audio: Union[str, np.ndarray], padding: int = N_SAMPLES,

@@ -7,10 +7,12 @@ as one device program; here each step is one decoder pass and a few tensor
 ops, and the host checks every few steps whether the loop has ended. The
 quantization options are ported at both widths: int8 or int4 cross K/V
 (`kv_bits`, K3 + K4), decoder weights (`weight_bits`; int4 through K5) and
-self cache (`self_kv_bits`). Speculative decoding (`draft_model`) is not
-ported yet and raises NotImplementedError.
+self cache (`self_kv_bits`). Speculative greedy decoding (`draft_model`,
+`spec_sample_loop`) drafts `draft_lookahead` tokens a round with a small
+model and verifies them in one pass of this one, token for token greedy's.
 """
 
+import threading
 from dataclasses import dataclass, field, replace
 from typing import Dict, Iterable, List, Optional, Tuple, Union
 
@@ -21,6 +23,7 @@ from .audio import CHUNK_LENGTH
 from .models.decoder import (
     CrossKV,
     decoder_forward,
+    decoder_forward_rows,
     init_cache,
     precompute_cross_kv,
     project_logits,
@@ -29,8 +32,17 @@ from .tokenizer import Tokenizer, get_tokenizer
 from .utils import compression_ratio
 
 NEG_INF = float("-inf")
+# the counts of the latest speculative decode in this thread, read as the
+# module attribute `_LAST_SPEC_STATS` (rounds, commits, tokens_per_round)
+_SPEC_STATS = threading.local()
 PREFILL_BUCKETS = (4, 8, 16, 32, 64, 128, 224, 256)
 FINISH_CHECK_EVERY = 8  # steps between host checks that every row ended
+
+
+def __getattr__(name: str):
+    if name == "_LAST_SPEC_STATS":
+        return getattr(_SPEC_STATS, "stats", None)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 @dataclass(frozen=True)
@@ -73,21 +85,31 @@ class DecodingResult:
     no_speech_prob: float = np.nan
     temperature: float = np.nan
     compression_ratio: float = np.nan
+    spec_stats: Optional[dict] = None  # speculative decoding's counts (the call's)
 
 
-def apply_logit_filters(logits: torch.Tensor, t: int, prev1: torch.Tensor,
-                        prev2: torch.Tensor, last_ts: torch.Tensor,
+def apply_logit_filters(logits: torch.Tensor, t: Union[int, torch.Tensor],
+                        prev1: torch.Tensor, prev2: torch.Tensor, last_ts: torch.Tensor,
                         suppress_mask: torch.Tensor, *, eot: int, ts_begin: int,
                         blank_token: int, max_initial_ts_index: Optional[int],
                         suppress_blank: bool, with_ts_rules: bool) -> torch.Tensor:
     """Suppress-blank, suppress-tokens and the timestamp rules on [B, V]
-    logits at sampled step t. prev1/prev2 are the tokens sampled at steps
-    t-1 and t-2 (ignored before they exist); last_ts is each row's latest
-    sampled timestamp token, or -1."""
+    logits at sampled step t: a Python int (every row at the same step), or
+    a [B] tensor (the speculative loop's rows, each at its own step).
+    prev1/prev2 are the tokens sampled at steps t-1 and t-2 (ignored before
+    they exist); last_ts is each row's latest sampled timestamp token, or
+    -1."""
     idx = torch.arange(logits.shape[-1], device=logits.device)[None, :]
     at_start = t == 0
-    if suppress_blank and at_start:
-        logits = logits.masked_fill((idx == blank_token) | (idx == eot), NEG_INF)
+    per_row = isinstance(at_start, torch.Tensor)
+
+    def at_start_fill(x, cond):
+        if per_row:
+            return x.masked_fill(at_start[:, None] & cond, NEG_INF)
+        return x.masked_fill(cond, NEG_INF) if at_start else x
+
+    if suppress_blank:
+        logits = at_start_fill(logits, (idx == blank_token) | (idx == eot))
     logits = logits + suppress_mask[None, :]
     if not with_ts_rules:
         return logits
@@ -102,10 +124,9 @@ def apply_logit_filters(logits: torch.Tensor, t: int, prev1: torch.Tensor,
     cut = torch.where(last_was & ~penult_was, last_ts, last_ts + 1)
     logits = logits.masked_fill(
         (last_ts >= 0)[:, None] & (idx >= ts_begin) & (idx < cut[:, None]), NEG_INF)
-    if at_start:
-        logits = logits.masked_fill(idx < ts_begin, NEG_INF)
-        if max_initial_ts_index is not None:
-            logits = logits.masked_fill(idx > ts_begin + max_initial_ts_index, NEG_INF)
+    logits = at_start_fill(logits, idx < ts_begin)
+    if max_initial_ts_index is not None:
+        logits = at_start_fill(logits, idx > ts_begin + max_initial_ts_index)
     # if the timestamps together are likelier than any text token, sample a
     # timestamp (the softmax normaliser cancels, so raw logits compare)
     ts_mass = torch.logsumexp(logits.masked_fill(idx < ts_begin, NEG_INF), dim=-1)
@@ -183,6 +204,131 @@ def greedy_sample_loop(params, cross, buf: torch.Tensor, *, pad: int, sot_slot: 
                                      n_head, compute_dtype, group=group)
             logits = project_logits(params, hidden)[:, 0]
     return buf, sum_lp, no_speech, t
+
+
+def spec_sample_loop(params, cross, draft_params, draft_cross, buf: torch.Tensor, *,
+                     pad: int, sot_slot: int, suppress_mask: torch.Tensor, prefill: int,
+                     max_steps: int, lookahead: int, n_head: int, n_head_draft: int,
+                     compute_dtype, eot: int, ts_begin: int, blank_token: int,
+                     no_speech_id: Optional[int], max_initial_ts_index: Optional[int],
+                     suppress_blank: bool, with_ts_rules: bool, **_):
+    """Greedy decoding by draft and verify: each round the draft model
+    proposes `lookahead` (L) tokens a row, one verifier pass over
+    [last correction, d1..dL] (S = L + 1 query rows, K4 at G = L + 1 on
+    quantized cross K/V) scores them all, and each row commits its agreeing
+    drafts and one correction of its own. Every committed token is the
+    verifier's filtered argmax given the committed prefix, so the tokens are
+    greedy's whatever the draft; the draft sets only how many a round
+    commits.
+
+    Round invariants (cp = a row's next slot to commit):
+      - the verifier's cache is valid over [pad, cp-1); the token at cp-1
+        (the last correction) leads the verify pass;
+      - the draft's cache is valid over [pad, cp-2]; its first pass each
+        round re-ingests slots {cp-2, cp-1} (a recompute where the slot was
+        valid, a repair after a full accept or a correction);
+      - both caches hold total + L + 1 slots (cache_ctx), so no pass writes
+        past them.
+    A row stops at EOT or after max_steps tokens. The rounds run in a Python
+    loop whose stop test is read on the host once a round: one device sync
+    a round (L + 1 decoder passes and the acceptance's small tensor ops),
+    which the greedy loop pays once every FINISH_CHECK_EVERY steps.
+
+    Returns (buf [B, total] with the committed tokens from `prefill` on,
+    sum_logprobs [B], no_speech_probs [B], {"rounds", "commits",
+    "tokens_per_round"})."""
+    dev = buf.device
+    b, total = buf.shape
+    L = lookahead
+    cache_ctx = total + L + 1
+    filt = dict(eot=eot, ts_begin=ts_begin, blank_token=blank_token,
+                max_initial_ts_index=max_initial_ts_index, suppress_blank=suppress_blank,
+                with_ts_rules=with_ts_rules)
+
+    def caches(p, heads):
+        return init_cache(len(p.blocks), b, cache_ctx, p.token_embedding.weight.shape[1],
+                          compute_dtype, heads, device=dev)
+
+    v_cache, d_cache = caches(params, n_head), caches(draft_params, n_head_draft)
+    hidden = decoder_forward(params, buf[:, :prefill], cross, v_cache, 0, pad, n_head,
+                             compute_dtype)
+    if no_speech_id is not None:
+        sot_logits = project_logits(params, hidden[:, sot_slot:sot_slot + 1])[:, 0]
+        no_speech = torch.softmax(sot_logits, dim=-1)[:, no_speech_id]
+    else:
+        no_speech = torch.full((b,), float("nan"), device=dev)
+    logits0 = project_logits(params, hidden[:, -1:])[:, 0]
+    decoder_forward(draft_params, buf[:, :prefill], draft_cross, d_cache, 0, pad,
+                    n_head_draft, compute_dtype)
+    if max_steps < 1:
+        return buf, torch.zeros(b, device=dev), no_speech, dict(
+            rounds=0, commits=0, tokens_per_round=0.0)
+
+    def commit_logprob(f):
+        a = f.argmax(dim=-1)
+        return a, f.gather(1, a[:, None])[:, 0] - torch.logsumexp(f, dim=-1)
+
+    # the first token is the verifier's own
+    zeros = torch.zeros(b, dtype=buf.dtype, device=dev)
+    c0, sum_lp = commit_logprob(apply_logit_filters(
+        logits0, zeros, zeros, zeros, torch.full_like(zeros, -1), suppress_mask, **filt))
+    buf[:, prefill] = c0
+    cp = torch.full((b,), prefill + 1, dtype=buf.dtype, device=dev)
+    last_ts = torch.where(c0 >= ts_begin, c0, -1)
+    finished = c0 == eot
+    rounds, commits = 0, torch.full((), b, dtype=torch.long, device=dev)
+    while bool((~finished & (cp - prefill < max_steps)).any()):  # the round's host sync
+        tminus1 = buf.gather(1, (cp - 1)[:, None])[:, 0]
+        tminus2 = buf.gather(1, (cp - 2)[:, None])[:, 0]
+
+        # draft: re-ingest {cp-2, cp-1}, then propose L tokens
+        dh = decoder_forward_rows(draft_params, torch.stack([tminus2, tminus1], dim=1),
+                                  draft_cross, d_cache, cp - 2, pad, n_head_draft,
+                                  compute_dtype)
+        dlogits = project_logits(draft_params, dh[:, -1:])[:, 0]
+        p1, p2, lts = tminus1, tminus2, last_ts
+        drafts = []
+        for i in range(L):
+            d = apply_logit_filters(dlogits, cp - prefill + i, p1, p2, lts, suppress_mask,
+                                    **filt).argmax(dim=-1)
+            drafts.append(d)
+            if i + 1 < L:  # the last draft's own pass would feed nothing
+                dh = decoder_forward_rows(draft_params, d[:, None], draft_cross, d_cache,
+                                          cp + i, pad, n_head_draft, compute_dtype)
+                dlogits = project_logits(draft_params, dh)[:, 0]
+            lts = torch.where(d >= ts_begin, d, lts)
+            p1, p2 = d, p1
+        drafts = torch.stack(drafts, dim=1)                          # [B, L]
+
+        # verify: one pass over [c, d1..dL]
+        vh = decoder_forward_rows(params, torch.cat([tminus1[:, None], drafts], dim=1), cross,
+                                  v_cache, cp - 1, pad, n_head, compute_dtype)
+        vlogits = project_logits(params, vh)                         # [B, L+1, V]
+
+        # accept: the agreeing drafts and one correction a row
+        remaining = max_steps - (cp - prefill)
+        open_i = ~finished & (remaining > 0)
+        p1, p2, lts = tminus1, tminus2, last_ts
+        ncommit = torch.zeros_like(cp)
+        for i in range(L + 1):
+            a, lp = commit_logprob(apply_logit_filters(
+                vlogits[:, i], cp - prefill + i, p1, p2, lts, suppress_mask, **filt))
+            slot = torch.clamp(cp + i, max=total - 1)[:, None]
+            buf.scatter_(1, slot, torch.where(open_i, a, buf.gather(1, slot)[:, 0])[:, None])
+            sum_lp = sum_lp + lp * open_i
+            lts = torch.where(open_i & (a >= ts_begin), a, lts)
+            finished = finished | (open_i & (a == eot))
+            ncommit = ncommit + open_i
+            p1, p2 = a, p1
+            if i < L:
+                open_i = open_i & (drafts[:, i] == a) & (a != eot) & (i + 1 < remaining)
+        cp = cp + ncommit
+        last_ts = lts
+        rounds += 1
+        commits = commits + ncommit.sum()
+    commits = int(commits)
+    return buf, sum_lp, no_speech, dict(rounds=rounds, commits=commits,
+                                        tokens_per_round=commits / max(rounds, 1))
 
 
 def _beam_topk(filtered: torch.Tensor, k: int):
@@ -330,6 +476,7 @@ class DecodingTask:
     def __init__(self, model, options: DecodingOptions):
         self.model = model
         self.options = self._verify_options(options)
+        self.spec_stats: Optional[dict] = None
         tokenizer = get_tokenizer(model.is_multilingual, language=options.language or "en",
                                   task=options.task)
         self.tokenizer: Tokenizer = tokenizer
@@ -352,8 +499,7 @@ class DecodingTask:
             mask[list(self._get_suppress_tokens())] = NEG_INF
         self.suppress_mask = torch.from_numpy(mask).to(model.device)
 
-    @staticmethod
-    def _verify_options(options: DecodingOptions) -> DecodingOptions:
+    def _verify_options(self, options: DecodingOptions) -> DecodingOptions:
         if options.beam_size is not None and options.best_of is not None:
             raise ValueError("beam_size and best_of can't be given together")
         if options.temperature == 0 and options.best_of is not None:
@@ -366,7 +512,18 @@ class DecodingTask:
             if getattr(options, name) not in (8, 4):
                 raise ValueError(f"{name} must be 8 or 4")
         if options.draft_model is not None:
-            raise NotImplementedError("speculative decoding is not ported yet")
+            if options.temperature != 0:
+                raise ValueError("draft_model requires temperature == 0 "
+                                 "(speculative decoding is greedy-exact)")
+            if options.beam_size is not None or options.best_of is not None:
+                raise ValueError("draft_model is incompatible with beam_size/best_of")
+            if options.self_kv_quant:
+                raise ValueError("draft_model is incompatible with self_kv_quant (the "
+                                 "per-row-position pass keeps a plain self cache)")
+            if options.draft_model.dims.n_vocab != self.model.dims.n_vocab:
+                raise ValueError("draft model must share the verifier's vocabulary")
+            if options.draft_lookahead < 1:
+                raise ValueError("draft_lookahead must be >= 1")
         if options.kv_layout not in (None, "fused"):
             raise NotImplementedError("only the fused cross-KV layout is ported")
         return options
@@ -451,13 +608,17 @@ class DecodingTask:
         if options.beam_size is not None:
             tokens, logprobs, no_speech = self._run_beam(params, cross, buf, loop_args)
         else:
-            generator = None
-            if options.temperature > 0:
-                generator = torch.Generator(device=mel.device)
-                generator.manual_seed(int(np.random.randint(0, 2**31 - 1)))
-            buf, sum_lp, no_speech, _ = greedy_sample_loop(
-                params, cross, buf, temperature=options.temperature, generator=generator,
-                **loop_args)
+            if options.draft_model is not None:
+                buf, sum_lp, no_speech = self._run_spec(mel, compute_dtype, params, cross,
+                                                        buf, loop_args)
+            else:
+                generator = None
+                if options.temperature > 0:
+                    generator = torch.Generator(device=mel.device)
+                    generator.manual_seed(int(np.random.randint(0, 2**31 - 1)))
+                buf, sum_lp, no_speech, _ = greedy_sample_loop(
+                    params, cross, buf, temperature=options.temperature,
+                    generator=generator, **loop_args)
             sampled = buf[:, prefill:].cpu().numpy()
             sum_lp = sum_lp.cpu().numpy()
             rows = [self._until_eot(row) for row in sampled]
@@ -475,8 +636,26 @@ class DecodingTask:
                 language=languages[i], tokens=tokens[i][pick], text=text,
                 avg_logprob=logprobs[i][pick] / (len(tokens[i][pick]) + 1),
                 no_speech_prob=float(no_speech[i]), temperature=options.temperature,
-                compression_ratio=compression_ratio(text)))
+                compression_ratio=compression_ratio(text), spec_stats=self.spec_stats))
         return results
+
+    def _run_spec(self, mel, compute_dtype, params, cross, buf, loop_args: dict):
+        """Speculative greedy decoding (`spec_sample_loop`): the draft model
+        runs its own encoder over the same mel, and decodes on its plain
+        fused weights and plain cross K/V. Returns the loop's buf, sum
+        logprobs and no-speech probabilities; its counts go to
+        `self.spec_stats` and `_LAST_SPEC_STATS`."""
+        draft, options = self.options.draft_model, self.options
+        draft_features, _ = draft.embed_audio(mel, options.fp16)
+        draft_params = draft.decoder_params_decode()
+        draft_cross = precompute_cross_kv(draft_params, draft_features,
+                                          draft.dims.n_text_head, compute_dtype)
+        buf, sum_lp, no_speech, self.spec_stats = spec_sample_loop(
+            params, cross, draft_params, draft_cross, buf,
+            lookahead=options.draft_lookahead, n_head_draft=draft.dims.n_text_head,
+            **loop_args)
+        _SPEC_STATS.stats = self.spec_stats
+        return buf, sum_lp, no_speech
 
     def _until_eot(self, row: np.ndarray) -> List[int]:
         """A row of sampled tokens up to its first EOT (all of it if none)."""

@@ -351,6 +351,57 @@ def decoder_forward(params: Parts, tokens: torch.Tensor, cross: CrossKV,
     return params.ln(x)
 
 
+def decoder_forward_rows(params: Parts, tokens: torch.Tensor, cross: CrossKV,
+                         cache: SelfKV, write_pos: torch.Tensor, pad: int, n_head: int,
+                         compute_dtype=torch.float32) -> torch.Tensor:
+    """`decoder_forward` with a write position per row: tokens [B, S] go to
+    cache slots write_pos[b]..+S of row b (write_pos a [B] tensor on the
+    device). The speculative loop's passes, whose rows advance at their own
+    rates. Updates the plain cache in place (the quantized self cache is
+    refused, as in the JAX package) and returns the hidden states [B, S, D]
+    after the final LN.
+
+    Positions are gathered per row and clamped to the position table (a row
+    past its committed region writes slots that are rewritten before they
+    are read), the mask is per row [B, 1, S, ctx] over the whole cache, the
+    cache writes are one indexed store per tensor over the [B, S] slots, and
+    the MLP is the unfused one. The cross-attention is `decoder_forward`'s:
+    K4 (or K4-int4, or K10) serves it on quantized cross K/V at S query rows
+    a head."""
+    if cache.bits is not None:
+        raise ValueError("decoder_forward_rows takes the plain self cache only")
+    stream = cross_decode_streamed()
+    dev = tokens.device
+    b, s = tokens.shape
+    n_ctx = cache.k.shape[3]
+    offs = torch.arange(s, device=dev)
+    qpos = write_pos[:, None] + offs[None, :]                       # [B, S] cache slots
+    pos = torch.clamp(qpos - pad, 0, params.positional_embedding.shape[0] - 1)
+    x = (params.token_embedding.weight[tokens]
+         + params.positional_embedding[pos]).to(compute_dtype)
+    slots = torch.arange(n_ctx, device=dev)[None, None, :]
+    q3 = qpos[:, :, None]
+    allowed = ((slots >= pad) & (slots <= q3)) | (slots == q3)
+    mask = torch.zeros(allowed.shape, device=dev).masked_fill(~allowed, NEG_INF)[:, None]
+    rows = torch.arange(b, device=dev)[:, None].expand(b, s)
+    for i, blk in enumerate(params.blocks):
+        q, k_new, v_new = blk.attn.qkv(blk.attn_ln(x)).chunk(3, dim=-1)
+        qh = _split_heads(q, n_head)
+        # [B, S, H, Dh] into slots qpos of each row (the slots stay inside
+        # the cache: the loop sizes it total + lookahead + 1)
+        cache.k[i][rows, :, qpos] = k_new.reshape(b, s, n_head, -1).to(cache.k.dtype)
+        cache.v[i][rows, :, qpos] = v_new.reshape(b, s, n_head, -1).to(cache.v.dtype)
+        scale = qh.shape[-1] ** -0.5
+        qk = (torch.matmul(qh.float(), cache.k[i].to(compute_dtype).float().transpose(-1, -2))
+              * scale + mask)
+        attn = torch.matmul(torch.softmax(qk, dim=-1).to(compute_dtype),
+                            cache.v[i].to(compute_dtype))
+        x = x + blk.attn.out(_merge_heads(attn))
+        x = _cross_attn_apply(blk, x, cross, i, n_head, compute_dtype, 1, stream)
+        x = x + blk.mlp[2](gelu(blk.mlp[0](blk.mlp_ln(x))))
+    return params.ln(x)
+
+
 def project_logits(params: Parts, hidden: torch.Tensor) -> torch.Tensor:
     """Tied-embedding output projection in fp32: [B, S, D] -> [B, S, V]."""
     emb = params.token_embedding.weight.to(hidden.dtype).float()

@@ -1,10 +1,74 @@
-"""Alignment-head masks of the released Whisper checkpoints.
+"""The released checkpoints: their file names and checksums, and their
+alignment-head masks.
 
-Base85-encoded, gzip-compressed boolean arrays of shape (n_text_layer,
-n_text_head) that mark the cross-attention heads whose attention follows
-word timing best (the reference Whisper's own table). Decode one with
-`models.whisper.decode_alignment_heads` or `Whisper.set_alignment_heads`.
+`_MODELS` and `_MODELS_AT` are the reference's download addresses of the
+Whisper checkpoints and of the TL-TR heads (with the `_low` TL-TR-512
+heads). The port fetches nothing: `load_model` takes only the file name
+(the address's last path part) and, where the address carries one, the
+sha256 of the file (a 64-hex-digit path part), and reads the file from a
+local directory.
+
+`_ALIGNMENT_HEADS` holds base85-encoded, gzip-compressed boolean arrays of
+shape (n_text_layer, n_text_head) that mark the cross-attention heads whose
+attention follows word timing best (the reference Whisper's own table).
+Decode one with `models.whisper.decode_alignment_heads` or
+`Whisper.set_alignment_heads`.
 """
+
+import re
+import urllib.parse
+from typing import Optional
+
+
+_MODELS = {
+    "tiny.en": "https://openaipublic.azureedge.net/main/whisper/models/d3dd57d32accea0b295c96e26691aa14d8822fac7d9d27d5dc00b4ca2826dd03/tiny.en.pt",
+    "tiny": "https://openaipublic.azureedge.net/main/whisper/models/65147644a518d12f04e32d6f3b26facc3f8dd46e5390956a9424a650c0ce22b9/tiny.pt",
+    "base.en": "https://openaipublic.azureedge.net/main/whisper/models/25a8566e1d0c1e2231d1c762132cd20e0f96a85d16145c3a00adf5d1ac670ead/base.en.pt",
+    "base": "https://openaipublic.azureedge.net/main/whisper/models/ed3a0b6b1c0edf879ad9b11b1af5a0e6ab5db9205f891f668f8b0e6c6326e34e/base.pt",
+    "small.en": "https://openaipublic.azureedge.net/main/whisper/models/f953ad0fd29cacd07d5a9eda5624af0f6bcf2258be67c92b79389873d91e0872/small.en.pt",
+    "small": "https://openaipublic.azureedge.net/main/whisper/models/9ecf779972d90ba49c06d968637d720dd632c55bbf19d441fb42bf17a411e794/small.pt",
+    "medium.en": "https://openaipublic.azureedge.net/main/whisper/models/d7440d1dc186f76616474e0ff0b3b6b879abc9d1a4926b7adfa41db2d497ab4f/medium.en.pt",
+    "medium": "https://openaipublic.azureedge.net/main/whisper/models/345ae4da62f9b3d59415adc60127b97c714f32e89e936602e85993674d08dcb1/medium.pt",
+    "large-v1": "https://openaipublic.azureedge.net/main/whisper/models/e4b87e7e0bf463eb8e6956e646f1e277e901512310def2c24bf0e11bd3c28e9a/large-v1.pt",
+    "large-v2": "https://openaipublic.azureedge.net/main/whisper/models/81f7c96c852ee8fc832187b0132e569d6c3065a3252ed18e56effd0b6a73e524/large-v2.pt",
+    "large": "https://openaipublic.azureedge.net/main/whisper/models/81f7c96c852ee8fc832187b0132e569d6c3065a3252ed18e56effd0b6a73e524/large-v2.pt",
+}
+
+_MODELS_AT = {
+    "tiny.en": "https://www.dropbox.com/s/atq9so6w0qug5ai/tiny.en_ori.pth?dl=1",
+    "tiny": "https://www.dropbox.com/s/cib4q4iz6g758l0/tiny_ori.pth?dl=1",
+    "base.en": "https://www.dropbox.com/s/qtzgsbuquoz0afn/base.en_ori.pth?dl=1",
+    "base": "https://www.dropbox.com/s/2odwh42u6e9ger7/base_ori.pth?dl=1",
+    "small.en": "https://www.dropbox.com/s/cyx50ycl1ul7lji/small.en_ori.pth?dl=1",
+    "small.en_low": "https://www.dropbox.com/s/507o66zgl8v6ddd/small.en_low.pth?dl=1",
+    "small": "https://www.dropbox.com/s/jftj9s0kr4ycvr1/small_ori.pth?dl=1",
+    "small_low": "https://www.dropbox.com/s/a1x0416v58f7wrf/small_low.pth?dl=1",
+    "medium.en": "https://www.dropbox.com/s/bbvylvmgns8ja4p/medium.en_ori.pth?dl=1",
+    "medium.en_low": "https://www.dropbox.com/s/2q5wprr8f9gti5t/medium.en_low.pth?dl=1",
+    "medium": "https://www.dropbox.com/s/65aabayr7o819az/medium_ori.pth?dl=1",
+    "medium_low": "https://www.dropbox.com/s/0mnfmcasram4n6o/medium_low.pth?dl=1",
+    "large-v1": "https://www.dropbox.com/s/b8x2en1fdzc8nhk/large-v1_ori.pth?dl=1",
+    "large-v1_low": "https://www.dropbox.com/s/5o79h70wyla8jlk/large-v1_low.pth?dl=1",
+    "large-v2": "https://www.dropbox.com/s/3zxpyvdrxy22eq7/large-v2_ori.pth?dl=1",
+    "large-v2_low": "https://www.dropbox.com/s/jw2rh4uylhqgn85/large-v2_low.pth?dl=1",
+    "large": "https://www.dropbox.com/s/3zxpyvdrxy22eq7/large-v2_ori.pth?dl=1",
+    "large_low": "https://www.dropbox.com/s/jw2rh4uylhqgn85/large-v2_low.pth?dl=1",
+}
+
+
+def file_name(url: str) -> str:
+    """The file a checkpoint address names (its path's last part)."""
+    return urllib.parse.urlparse(url).path.rsplit("/", 1)[-1]
+
+
+def sha256_of(url: str) -> Optional[str]:
+    """The sha256 an address carries as a path part (the Whisper
+    checkpoints'), or None (the TL-TR heads')."""
+    for part in urllib.parse.urlparse(url).path.split("/"):
+        if re.fullmatch(r"[0-9a-f]{64}", part):
+            return part
+    return None
+
 
 _ALIGNMENT_HEADS = {
     "tiny.en": b"ABzY8J1N>@0{>%R00Bk>$p{7v037`oCl~+#00",

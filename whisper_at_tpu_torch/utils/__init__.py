@@ -1,5 +1,6 @@
 """Small host-side helpers: integer division, zlib compression ratio,
-timestamp formatting, and console-safe strings."""
+timestamp formatting, console-safe strings and the command line's argument
+types. The output writers are in `utils.writers`."""
 
 import sys
 import zlib
@@ -11,6 +12,22 @@ def exact_div(x: int, y: int) -> int:
     if x % y:
         raise ValueError(f"{x} is not a multiple of {y}")
     return x // y
+
+
+def str2bool(string: str) -> bool:
+    """'True' or 'False' (the command line's booleans)."""
+    values = {"True": True, "False": False}
+    if string not in values:
+        raise ValueError(f"Expected one of {set(values)}, got {string}")
+    return values[string]
+
+
+def optional_int(string: str):
+    return None if string == "None" else int(string)
+
+
+def optional_float(string: str):
+    return None if string == "None" else float(string)
 
 
 def compression_ratio(text: str) -> float:
