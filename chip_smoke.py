@@ -11,7 +11,11 @@ it (the headline workload: large-v1, batch 24, bf16; K5 at the decode
 loop's four weight shapes with 24 and 96 rows; the DTW at the word timing's
 matrix sizes) and times both; K2 also beside the unfused chain it
 replaces, at the headline's rows and at one audio row (`k2_points`), with
-the kernel before its redesign as recorded (K2_BEFORE); K3 and K3-int4 as
+the kernel before its redesign as recorded (K2_BEFORE); K2-partial at the
+tensor-parallel widths F 2560 and 1280, each rank's slice against its plain
+version and the ranks summed against K2 (`k2_partial_row`); K3 and K3-int4
+on a rank's [640, 1280] and [320, 1280] weights beside the whole layer
+(`k3_tp_points`); K3 and K3-int4 as
 `precompute_cross_kv` meets them, a CUDA graph of one launch a layer over
 32 layers' weight pairs on one xa, at batch 24 and at one audio row, each
 also held against its plain version at both (`k3_points`; K3_BEFORE as
@@ -77,6 +81,17 @@ before and read just after, and checks its output:
     the verify passes); each draft call's rows equal greedy's or differ
     first at a near tie, within twice the measured rounding noise between a
     verify pass and the single steps over the same prefix;
+(15) the mesh phase (`mesh_check`): the headline's options over its first 8
+    windows, first a 1 x 1 mesh over NCCL in this process, token for token
+    and tag for tag the mesh-free call's; then this script twice more as
+    two ranks sharing the card over gloo (`--mesh-rank`): dp 2
+    (`transcribe_batched`, `transcribe_many`), pp 2 and sp 2 (the
+    encoder), tp 2 (K1 and K4 at 10 heads, K2-partial at F 2560, K3 at N
+    640, launched in each rank); every window equal to the mesh-free
+    call's or differing first at a decision margin within twice the
+    measured rounding noise, encoder, taps and tags within 2^-5 of the
+    reference's largest magnitude, rates labelled two ranks sharing one
+    card;
 (9) the streaming probe: `tools/probe_dma_torch.py`'s `probe` at the JAX
     probe's defaults (512 MiB int8 in 1 MiB chunks, the same numpy draw):
     P1 and P2 (cp.async and TMA rings at depths 2, 4, 8), each bitwise
@@ -567,12 +582,68 @@ def k2_compare(*args):
     return err, f"{tol:.3e}"
 
 
-def k2_bound(m: int):
-    """K2's bound at m rows of D: 4 m D 4D operations; x, the weights, LN
-    and bias vectors and out, each read or written once."""
-    f = 4 * D
-    return bound(4.0 * m * D * f, 2.0 * (2 * m * D + 2 * D * f) + 4.0 * (3 * D + f),
+def k2_bound(m: int, f: int = 4 * D):
+    """K2's bound at m rows of D over f hidden units (4D; K2-partial a
+    rank's 4D / tp): 4 m D f operations; x, the weights, LN and bias vectors
+    and out, each read or written once (K2-partial reads no b2)."""
+    vectors = 3 * D + f if f == 4 * D else 2 * D + f
+    return bound(4.0 * m * D * f, 2.0 * (2 * m * D + 2 * D * f) + 4.0 * vectors,
                  PEAK_BF16_FLOPS)
+
+
+def k2_partial_compare(*args):
+    """K2-partial against its plain version: 1e-3 + 2^-6 max |ref|."""
+    from whisper_at_tpu_torch.ops import enc_mlp
+
+    out = enc_mlp.enc_mlp_partial(*args)
+    ref = enc_mlp.enc_mlp_partial_plain(*args)
+    torch.cuda.synchronize()
+    err = max_err(out, ref)
+    tol = 1e-3 + 2 ** -6 * float(ref.float().abs().max())
+    check(f"K2-partial {tuple(args[0].shape)} F {args[3].shape[0]}", err, tol)
+    return err, f"{tol:.3e}"
+
+
+def k2_partial_row(card: str, args) -> dict:
+    """K2-partial at the tensor-parallel widths of large-v1 (F = 2560 at
+    tp 2, 1280 at tp 4) on the headline's K2 inputs: each rank's slice held
+    against its plain version, the ranks' outputs summed plus x + b2 held
+    against the whole K2's, and rank 0's slice timed (10 calls) beside the
+    whole K2 and its bound. Returns the tp 2 row (the mesh phase's width)."""
+    from whisper_at_tpu_torch.ops import enc_mlp
+
+    x, ln_w, ln_b, w1, b1, w2, b2 = args
+    f = 4 * D
+    whole = enc_mlp.enc_mlp(*args)
+    whole_ms = time_ms(lambda: enc_mlp.enc_mlp(*args), 10)
+    rows = {}
+    for tp in (2, 4):
+        fr = f // tp
+        parts = [(x, ln_w, ln_b, w1[r * fr:(r + 1) * fr], b1[r * fr:(r + 1) * fr],
+                  w2[:, r * fr:(r + 1) * fr].contiguous()) for r in range(tp)]
+        errs, tols = zip(*(k2_partial_compare(*p) for p in parts))
+        total = sum(enc_mlp.enc_mlp_partial(*p).float() for p in parts)
+        summed = (x.float() + total + b2.float()).to(torch.bfloat16)
+        sum_err = max_err(summed, whole)
+        sum_tol = 1e-3 + 2 ** -6 * float(whole.float().abs().max())
+        check(f"K2-partial tp {tp} summed against K2", sum_err, sum_tol)
+        ms = time_ms(lambda: enc_mlp.enc_mlp_partial(*parts[0]), 10)
+        bnd = k2_bound(BATCH * T_ENC, fr)
+        rows[tp] = dict(
+            module=enc_mlp, kernel=enc_mlp.KERNEL_PARTIAL, err=max(errs),
+            tol=(f"{tols[0]}; the {tp} ranks summed + x + b2 against K2: err {sum_err:.3e} "
+                 f"<= {sum_tol:.3e}"),
+            ms=ms, plain_ms=time_ms(lambda: enc_mlp.enc_mlp_partial_plain(*parts[0]), 3, 1),
+            library_ms=None, bound=bnd)
+        whole_bound = k2_bound(BATCH * T_ENC)[0]
+        sms = enc_mlp.sm_count(0)
+        fc1, fc2 = enc_mlp.plan(BATCH * T_ENC, fr, sms), enc_mlp.plan(BATCH * T_ENC, D, sms)
+        print(f"K2-partial tp {tp} [{BATCH}, {T_ENC}, {D}] F {fr}: kernel {ms:.4f} ms a rank, "
+              f"{100 * bnd[0] / ms:.1f}% of its {bnd[0]:.4f} ms bound; the whole K2 "
+              f"{whole_ms:.4f} ms ({100 * whole_bound / whole_ms:.1f}% of {whole_bound:.4f} "
+              f"ms); plan (width, blocks) fc1 {fc1}, fc2 {fc2}; max_abs_err {max(errs):.3e}, "
+              f"summed over ranks {sum_err:.3e} [{card}]", flush=True)
+    return rows[2]
 
 
 def k2_chain(x, ln_w, ln_b, w1, b1, w2, b2):
@@ -620,15 +691,42 @@ def k2_points(card: str, args=None) -> None:
     print("K2: " + "; ".join(parts) + f"; before its redesign {K2_BEFORE} [{card}]", flush=True)
 
 
-def k3_bound(b: int, bits: int):
-    """K3's bound (or K3-int4's) at b audio rows of large-v1: xa, the weight
-    pair and bv read once, the codes and fp32 scales of K and V written
-    once; 2 x 2 b Ta D D operations."""
+def k3_bound(b: int, bits: int, n: int = D):
+    """K3's bound (or K3-int4's) at b audio rows of large-v1 over n output
+    columns (D; a tensor-parallel rank's D / tp): xa, the weight pair and bv
+    read once, the codes and fp32 scales of K and V written once; 2 x 2 b
+    Ta D n operations."""
     ta_pad = -(-T_ENC // 128) * 128
-    return bound(2.0 * 2 * b * T_ENC * D * D,
-                 2.0 * b * T_ENC * D + 2 * 2.0 * D * D + 2.0 * D
-                 + 2 * (b * ta_pad * D * bits / 8 + 4.0 * b * H * ta_pad),
+    return bound(2.0 * 2 * b * T_ENC * D * n,
+                 2.0 * b * T_ENC * D + 2 * 2.0 * n * D + 2.0 * n
+                 + 2 * (b * ta_pad * n * bits / 8 + 4.0 * b * (n // DH) * ta_pad),
                  PEAK_BF16_FLOPS)
+
+
+def k3_tp_points(card: str, xa, wk, wv, bv) -> None:
+    """K3 and K3-int4 on a tensor-parallel rank's [D / tp, D] weights (rank
+    0's rows of one layer) at tp 2 and 4 (N = 640, 320) beside the whole
+    layer (N = 1280), on the headline's xa [24, 1500, 1280]: held against
+    the plain version (tp > 1; the whole layer is held in its rows), and
+    timed hot over 10 launches of one layer's weights, each beside its
+    bound. Prints one line an entry."""
+    from whisper_at_tpu_torch.ops import kv_quant
+
+    for entry, bits in (("K3", 8), ("K3-int4", 4)):
+        project = kv_quant.project_quantize_kv4 if bits == 4 else kv_quant.project_quantize_kv
+        parts = []
+        for tp in (1, 2, 4):
+            n = D // tp
+            w = tuple(t[:n].contiguous() for t in (wk, wv, bv))
+            err = k3_compare(xa, *w, bits=bits)[0] if tp > 1 else None
+            ms = time_ms(lambda: project(xa, *w), 10)
+            bnd = k3_bound(BATCH, bits, n)
+            bn, blocks = kv_quant.plan(BATCH, T_ENC, n, kv_quant.sm_count(0))
+            parts.append(f"N {n}{'' if tp == 1 else f' (tp {tp})'} {ms:.4f} ms, "
+                         f"{100 * bnd[0] / ms:.1f}% of {bnd[0]:.4f} ms, {bn}-wide tiles on "
+                         f"{blocks} blocks" + ("" if err is None else f", err {err:.3e}"))
+        print(f"{entry} at tensor-parallel widths [{BATCH}, {T_ENC}, {D}] (hot, 10 launches of "
+              f"one layer's weights): " + "; ".join(parts) + f" [{card}]", flush=True)
 
 
 def k3_inputs(gen, dev):
@@ -855,7 +953,7 @@ def k10_compare(q, kq, ks, vq, vs, bias, n_head, bits: int = 8):
     return err, f"{tol:.3e}"
 
 
-COMPARE = {"K1": k1_compare, "K2": k2_compare, "K3": lambda *a: k3_compare(*a)[:2],
+COMPARE = {"K1": k1_compare, "K2": k2_compare, "K2-partial": k2_partial_compare, "K3": lambda *a: k3_compare(*a)[:2],
            "K4": k4_compare, "K3-int4": lambda *a: k3_compare(*a, bits=4)[:2],
            "K4-int4": lambda *a: k4_compare(*a, bits=4), "K5": k5_compare,
            "K7": k7_compare, "K8": k8_compare, "K10": k10_compare,
@@ -1140,6 +1238,7 @@ def kernel_checks(card: str):
         library_ms=None,
         bound=k2_bound(BATCH * T_ENC))
     k2_points(card, args)
+    rows["K2-partial"] = k2_partial_row(card, args)
     del x, args, w1, w2
 
     # ---- K8 decode MLP: x [M, 1280], W1 [5120, 1280], W2 [1280, 5120] ----- #
@@ -1150,6 +1249,7 @@ def kernel_checks(card: str):
     k3 = k3_points(card, xa, layers)
     wk, wv, bv = layers[0]
     del layers
+    k3_tp_points(card, xa, wk, wv, bv)
     outs = {}
     for entry, bits in (("K3", 8), ("K3-int4", 4)):
         err, tol, outs[bits] = k3_compare(xa, wk, wv, bv, bits=bits)
@@ -1334,7 +1434,8 @@ def kernels_of(names) -> list:
         w4_matmul,
     )
 
-    kernels = {"K1": enc_attention.KERNEL, "K2": enc_mlp.KERNEL, "K3": kv_quant.KERNEL,
+    kernels = {"K1": enc_attention.KERNEL, "K2": enc_mlp.KERNEL,
+               "K2-partial": enc_mlp.KERNEL_PARTIAL, "K3": kv_quant.KERNEL,
                "K4": cross_decode.KERNEL, "K3-int4": kv_quant.KERNEL4,
                "K4-int4": cross_decode.KERNEL4, "K5": w4_matmul.KERNEL, "K6": dtw.KERNEL,
                "K7": enc_flash.KERNEL, "K8": fused_mlp.KERNEL, "K8-int8": fused_mlp.KERNEL_INT8,
@@ -1364,6 +1465,7 @@ class Recorder:
         from whisper_at_tpu_torch.ops import dtw, w4_matmul
 
         self.sites = {"K1": (encoder, "enc_attention"), "K2": (encoder, "enc_mlp"),
+                      "K2-partial": (encoder, "enc_mlp_partial"),
                       "K3": (decoder, "project_quantize_kv"),
                       "K4": (decoder, "cross_attention_int8"),
                       "K3-int4": (decoder, "project_quantize_kv4"),
@@ -2555,11 +2657,436 @@ def probe_check(card: str):
     return rows, counts
 
 
+# the mesh phase: the headline's options over 8 of its windows (240 s), one
+# rank over NCCL, then two ranks sharing the card over gloo
+MESH_WINDOWS = 8
+MESH_TP = 2
+MESH_DEADLINE_S = 480       # the two ranks' whole run; the parent kills them past it
+MESH_GROUP_TIMEOUT_S = 120  # every collective of the two ranks
+MESH_TP_KERNELS = ("K1", "K2-partial", "K3", "K4")
+MESH_NOISE_STEPS = 24       # decode steps over which the tp split's noise is measured
+# bf16 tolerances of the mesh phase against the mesh-free call, relative to
+# the reference's largest magnitude: the encoder output and taps, and the
+# tag logits (the TL-TR head over those taps)
+MESH_ENC_REL = 2 ** -5
+MESH_TAG_REL = 2 ** -5
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def window_results():
+    """The results of every window of each `transcribe._decode_windows_batched`
+    call of the block, one list a call (every window, after a mesh's dp
+    gather)."""
+    import importlib
+
+    # the module: the package's `transcribe` attribute is the function
+    tr = importlib.import_module("whisper_at_tpu_torch.transcribe")
+    calls, run = [], tr._decode_windows_batched
+
+    def keeping(*args, **kwargs):
+        results = run(*args, **kwargs)
+        calls.append([list(r.tokens) for r in results])
+        return results
+
+    tr._decode_windows_batched = keeping
+    try:
+        yield calls
+    finally:
+        tr._decode_windows_batched = run
+
+
+def mesh_audio():
+    audio = synth_audio(MESH_WINDOWS * 30, SEED)
+    half = len(audio) // 2
+    return audio, [audio[:half], audio[half:]]
+
+
+def teacher_forced(model, windows, tokens, opts: dict, steps: int, feats=None):
+    """The greedy loop's passes over `windows` (or their encoder output
+    `feats`) teacher-forced on the first `steps` of each row of `tokens`,
+    at the call's own options (its int8 weights, cross K/V and self cache),
+    on the model as it is (whole or its tp shard): (raw logits [rows,
+    steps, V], each step's decision margin [rows, steps]: the smaller of
+    the filtered logits' top-two gap and the timestamp rule's margin, where
+    a rounding difference could change the token). The difference of two
+    configurations' raw logits is their rounding noise on the decode path
+    (`mesh_check`)."""
+    from whisper_at_tpu_torch import decoding
+    from whisper_at_tpu_torch.models.decoder import (
+        decoder_forward,
+        init_cache,
+        precompute_cross_kv,
+        project_logits,
+    )
+
+    task = decoding.DecodingTask(model, decoding.DecodingOptions(**{
+        k: v for k, v in opts.items() if k in decoding.DecodingOptions.__dataclass_fields__}))
+    dtype = model.compute_dtype(True)
+    heads = model.text_heads
+    if feats is None:
+        feats, _ = model.embed_audio(windows, True)
+    params = model.decoder_params_decode(opts["weight_quant"])
+    cross = precompute_cross_kv(params, feats, heads, dtype, quantize=opts["kv_quant"])
+    init = list(task.initial_tokens)
+    prefill = decoding._prefill_bucket(len(init))
+    pad = prefill - len(init)
+    rows, dev = windows.shape[0], windows.device
+    buf = torch.zeros((rows, prefill + steps + 1), dtype=torch.long, device=dev)
+    buf[:, pad:prefill] = torch.tensor(init, device=dev)
+    buf[:, prefill:prefill + steps] = torch.tensor([t[:steps] for t in tokens], device=dev)
+    cache = init_cache(len(params.blocks), rows, buf.shape[1], params.width, dtype, heads,
+                       quantize=opts.get("self_kv_quant", False), device=dev)
+    hidden = decoder_forward(params, buf[:, :prefill], cross, cache, 0, pad, heads, dtype)
+    logits = project_logits(params, hidden[:, -1:])[:, 0]
+    filt = dict(eot=task.tokenizer.eot, ts_begin=task.tokenizer.timestamp_begin,
+                blank_token=task.blank_token, max_initial_ts_index=task.max_initial_ts_index,
+                suppress_blank=task.options.suppress_blank, with_ts_rules=task.with_ts_rules)
+    last_ts = torch.full((rows,), -1, dtype=torch.long, device=dev)
+    raw, gaps = [], []
+    for t in range(steps):
+        slot = prefill + t
+        raw.append(logits)
+        f, rule = decoding.apply_logit_filters(
+            logits, t, buf[:, slot - 1], buf[:, max(slot - 2, 0)], last_ts, task.suppress_mask,
+            return_margin=True, **filt)
+        top2 = f.topk(2, dim=-1).values
+        gaps.append(torch.minimum(top2[:, 0] - top2[:, 1], rule.abs()).float())
+        token = buf[:, slot]
+        last_ts = torch.where(token >= filt["ts_begin"], token, last_ts)
+        hidden = decoder_forward(params, token[:, None], cross, cache, slot, pad, heads, dtype)
+        logits = project_logits(params, hidden)[:, 0]
+    return torch.stack(raw, dim=1), torch.stack(gaps, dim=1)
+
+
+def mesh_rank(rank: int, workdir: str) -> int:
+    """One of the mesh phase's two ranks (run as `chip_smoke.py --mesh-rank
+    RANK DIR`): both on card 0, in a gloo group through DIR."""
+    from whisper_at_tpu_torch.parallel.mesh import init_distributed
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    init_distributed("cuda", backend="gloo", world_size=2, rank=rank,
+                     init_method=f"file://{os.path.join(workdir, 'rendezvous')}",
+                     timeout_s=MESH_GROUP_TIMEOUT_S)
+    mesh_calls(os.path.join(workdir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def mesh_calls(path: str) -> dict:
+    """This rank's part of the mesh calls over every rank of the running
+    process group (W ranks), each with large-v1 built from SEED on its
+    device. dp = W: `transcribe_batched` and `transcribe_many`; pp = W and
+    sp = W: the encoder over the MESH_WINDOWS windows, against
+    `encoder_apply` in this rank; tp = W: the decode path's logits
+    teacher-forced against the whole model's (the rounding noise of the
+    split, `teacher_forced`), then the counted `transcribe_batched` (K1,
+    K2-partial, K3, K4 at the rank's widths; never K2), its kernel inputs
+    recorded and held against the plain versions. Saves the results to
+    `path` and returns them."""
+    import torch.distributed as dist
+
+    import whisper_at_tpu_torch as wat
+    from whisper_at_tpu_torch.audio import N_SAMPLES, log_mel_spectrogram
+    from whisper_at_tpu_torch.parallel.inference import place_model_on_mesh, place_model_tp
+    from whisper_at_tpu_torch.parallel.mesh import make_mesh
+    from whisper_at_tpu_torch.parallel.pipeline import encoder_apply_pp, make_pp_mesh
+    from whisper_at_tpu_torch.parallel.sequence import encoder_apply_sp, make_sp_mesh
+    from whisper_at_tpu_torch.transcribe import _mel_to_windows
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world, rank = dist.get_world_size(), dist.get_rank()
+    card = card_line()
+    out = {}
+    dp = make_mesh(dp=world, tp=1)
+    model = wat.build_model(SIZE, device=dp.device, dtype=torch.bfloat16, seed=SEED)
+    audio, files = mesh_audio()
+    windows, _ = _mel_to_windows(log_mel_spectrogram(audio, padding=N_SAMPLES,
+                                                     device=model.device))
+    with torch.no_grad():
+        ref_x, ref_taps = model.embed_audio(windows)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - t0
+
+    # ---- dp = W ---------------------------------------------------------- #
+    place_model_on_mesh(model, dp, broadcast=False)  # every rank built SEED's weights
+    for name, call in (("dp batched", lambda: wat.transcribe_batched(
+            model, audio, mesh=dp, **HEADLINE_OPTS)), ("dp many", lambda: wat.transcribe_many(
+                model, files, mesh=dp, **HEADLINE_OPTS))):
+        with window_results() as calls:
+            result, seconds = timed(call)
+        tags = [r["audio_tag"] for r in result] if isinstance(result, list) else \
+            [result["audio_tag"]]
+        out[name] = dict(tokens=calls[-1], tags=tags, seconds=seconds)
+    model._mesh = None
+
+    # ---- pp = W, sp = W: the encoder -------------------------------------- #
+    with torch.no_grad():
+        for name, make, apply in (("pp", make_pp_mesh, encoder_apply_pp),
+                                  ("sp", make_sp_mesh, encoder_apply_sp)):
+            mesh = make(world)
+            (x, taps), seconds = timed(lambda: apply(model.encoder, windows, mesh, H,
+                                                     torch.bfloat16))
+            out[name] = dict(x_err=max_err(x, ref_x), taps_err=max_err(taps, ref_taps),
+                             x_max=float(ref_x.float().abs().max()),
+                             taps_max=float(ref_taps.float().abs().max()), seconds=seconds)
+            del x, taps
+
+    # ---- tp = W ------------------------------------------------------------ #
+    tp = make_mesh(dp=1, tp=world)
+    decoded = out["dp batched"]["tokens"]
+    steps = min(MESH_NOISE_STEPS, *(len(t) for t in decoded))
+    with torch.no_grad():
+        ref_logits = teacher_forced(model, windows, decoded, HEADLINE_OPTS, steps, ref_x)[0]
+        place_model_tp(model, tp, broadcast=False)
+        x, taps = model.embed_audio(windows)
+        noise = max_err(teacher_forced(model, windows, decoded, HEADLINE_OPTS, steps, x)[0],
+                        ref_logits)
+    out["tp encoder"] = dict(x_err=max_err(x, ref_x), taps_err=max_err(taps, ref_taps),
+                             x_max=float(ref_x.float().abs().max()),
+                             taps_max=float(ref_taps.float().abs().max()))
+    del x, taps, ref_logits
+    with Recorder() as rec, window_results() as calls:
+        result, seconds, counts = run_counted(
+            lambda: wat.transcribe_batched(model, audio, mesh=tp, **HEADLINE_OPTS),
+            MESH_TP_KERNELS, ("K2",))
+    # K1's q, K2-partial's w1, K3's wk, K4's q: the widths each ran at
+    picks = {"K1": 0, "K2-partial": 3, "K3": 1, "K4": 0}
+    shapes = {name: sorted({tuple(args[i].shape) for args in rec.inputs[name]})
+              for name, i in picks.items()}
+    hold_path_inputs(card, f"mesh tp {world} rank {rank}", rec.inputs)
+    out["tp"] = dict(tokens=calls[-1], tags=[result["audio_tag"]], seconds=seconds,
+                     counts=counts, noise=noise, shapes=shapes)
+    torch.save(out, path)
+    return out
+
+
+def mesh_check(card: str, model) -> dict:
+    """The mesh phase. (a) One rank over NCCL: a 1 x 1 mesh's
+    `transcribe_batched` at the headline's options over MESH_WINDOWS windows,
+    counted, its tokens and tags those of the mesh-free call exactly. (b) Two
+    ranks on this one card over gloo (`mesh_rank`; NCCL puts no two ranks on
+    one device), their rates labelled as two ranks sharing one card: dp 2
+    (`transcribe_batched`, `transcribe_many` over two files), pp 2 and sp 2
+    (the encoder), tp 2 (K1 and K4 at 10 heads, K2-partial at F 2560, K3 at
+    N 640, counted in each rank). Each mesh call's windows are held to the
+    mesh-free call's: equal, or differing first where the mesh-free greedy
+    step's decision margin (its top-two gap, or the timestamp rule's
+    margin) is within twice the rounding noise (`teacher_forced`,
+    the decode path's logits at the call's own options, as
+    `verify_noise_and_gaps` measures the verify pass's: dp as the two
+    halves' batches against one, tp in the ranks against the whole model);
+    encoder outputs, taps and tags within MESH_ENC_REL / MESH_TAG_REL of the
+    reference's largest magnitude. Returns rank 0's tp launch counts."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    import whisper_at_tpu_torch as wat
+    from whisper_at_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+    t_phase = time.perf_counter()
+    audio, _ = mesh_audio()
+    seconds_audio = len(audio) / 16000
+    refs = mesh_references(model)
+    ref, ref_tokens = refs["batched"]
+
+    # ---- (a) one rank over NCCL ------------------------------------------- #
+    init_distributed("cuda", backend="nccl", init_method=f"tcp://localhost:{free_port()}",
+                     world_size=1, rank=0, timeout_s=MESH_GROUP_TIMEOUT_S)
+    mesh = make_mesh(dp=1, tp=1)
+    with window_results() as calls:
+        got, seconds, counts = run_counted(
+            lambda: wat.transcribe_batched(model, audio, mesh=mesh, **HEADLINE_OPTS),
+            HEADLINE_KERNELS)
+    backend = mesh.backend
+    model._mesh = None
+    dist.destroy_process_group()
+    if calls[-1] != ref_tokens or not np.array_equal(got["audio_tag"], ref["audio_tag"]):
+        raise AssertionError("the 1 x 1 NCCL mesh's tokens or tags differ from the mesh-free "
+                             "call's")
+    print(f"mesh (a) 1 x 1 over {backend}: transcribe_batched {SIZE} {MESH_WINDOWS} windows "
+          f"{seconds_audio:.0f} s audio in {seconds:.3f} s = {seconds_audio / seconds:.2f} "
+          f"audio-s/s, tokens of all {len(ref_tokens)} windows and the tags equal to the "
+          f"mesh-free call's, launches {counts} [{card}]", flush=True)
+
+    # ---- (b) two ranks sharing the card over gloo ------------------------- #
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    logs = [open(os.path.join(workdir, f"rank{r}.log"), "w") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
+                               workdir], stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(2)]
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, MESH_DEADLINE_S - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    ranks_s = time.perf_counter() - t0
+    for r in range(2):
+        with open(os.path.join(workdir, f"rank{r}.log")) as f:
+            for line in f.read().splitlines():
+                print(f"mesh rank {r}: {line}", flush=True)
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"mesh ranks exited {[p.returncode for p in procs]} (killed "
+                             f"past {MESH_DEADLINE_S} s: {ranks_s >= MESH_DEADLINE_S})")
+    ranks = [torch.load(os.path.join(workdir, f"rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    hold_mesh_ranks(card, model, ranks, refs,
+                    "two ranks sharing one card over gloo, no scaling figure")
+    print(f"mesh: the two ranks took {ranks_s:.1f} s, the phase "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return ranks[0]["tp"]["counts"]
+
+
+def mesh_references(model) -> dict:
+    """The mesh-free calls the mesh calls are held to, at the headline's
+    options over `mesh_audio`: {"batched": (result, tokens a window),
+    "many": (results, tokens a window)}."""
+    import whisper_at_tpu_torch as wat
+
+    audio, files = mesh_audio()
+    with window_results() as calls:
+        ref = wat.transcribe_batched(model, audio, **HEADLINE_OPTS)
+        ref_many = wat.transcribe_many(model, files, **HEADLINE_OPTS)
+    return {"batched": (ref, calls[0]), "many": (ref_many, calls[1])}
+
+
+def hold_mesh_ranks(card: str, model, ranks: list, refs: dict, setting: str) -> None:
+    """Every rank's mesh calls (`mesh_calls`, W ranks) held to the mesh-free
+    calls (`mesh_references`) on the whole `model`: each window's tokens
+    equal, or differing first at a decision margin within twice the
+    rounding noise (the larger of dp's, the windows decoded as W contiguous
+    shares against one batch, and tp's, measured in the ranks); encoder
+    output, taps and tags within MESH_ENC_REL / MESH_TAG_REL of the
+    reference's largest magnitude; the tp kernels at the rank's widths.
+    Prints a line a rank, rates labelled with `setting`; raises on any
+    failure."""
+    from whisper_at_tpu_torch.audio import N_SAMPLES, log_mel_spectrogram
+    from whisper_at_tpu_torch.parallel.inference import share
+    from whisper_at_tpu_torch.transcribe import _mel_to_windows
+
+    world = len(ranks)
+    audio, files = mesh_audio()
+    seconds_audio = len(audio) / 16000
+    (ref, ref_tokens), (ref_many, ref_many_tokens) = refs["batched"], refs["many"]
+
+    windows, _ = _mel_to_windows(log_mel_spectrogram(audio, padding=N_SAMPLES,
+                                                     device=model.device))
+    many_windows = torch.cat([_mel_to_windows(log_mel_spectrogram(
+        f, padding=N_SAMPLES, device=model.device))[0] for f in files])
+    with torch.no_grad():
+        steps = min(len(t) for t in ref_tokens)
+        ref_logits, gaps = teacher_forced(model, windows, ref_tokens, HEADLINE_OPTS, steps)
+        shares = [share(len(ref_tokens), world, i) for i in range(world)]
+        split = torch.cat([teacher_forced(model, windows[sl], ref_tokens[sl], HEADLINE_OPTS,
+                                          steps)[0] for sl in shares if sl.stop > sl.start])
+        dp_noise = max_err(split, ref_logits)
+        del ref_logits, split
+        many_gaps = teacher_forced(model, many_windows, ref_many_tokens, HEADLINE_OPTS,
+                                   min(len(t) for t in ref_many_tokens))[1].cpu().numpy()
+    gaps = gaps.cpu().numpy()
+    tp_noise = max(r["tp"]["noise"] for r in ranks)
+    noise = max(tp_noise, dp_noise)
+    failures = []
+
+    def held(label, tokens, ref_rows, row_gaps):
+        differing = []
+        if len(tokens) != len(ref_rows):
+            failures.append(f"mesh {label}: {len(tokens)} windows, not {len(ref_rows)}")
+        for row, (want, have) in enumerate(zip(ref_rows, tokens)):
+            if want == have:
+                continue
+            first = next((i for i, (a, b) in enumerate(zip(want, have)) if a != b),
+                         min(len(want), len(have)))
+            gap = float(row_gaps[row, first]) if first < row_gaps.shape[1] else float("inf")
+            if not gap <= 2 * noise:
+                failures.append(f"mesh {label}: window {row} differs first at token {first}, "
+                                f"where the mesh-free step's decision margin {gap:.4g} exceeds "
+                                f"twice the rounding noise {noise:.4g}")
+            differing.append((row, first, round(gap, 5)))
+        return differing
+
+    def tags_within(label, tags, ref_tags):
+        worst = 0.0
+        for t, want in zip(tags, ref_tags):
+            err = float(np.abs(np.asarray(t) - np.asarray(want)).max())
+            tol = MESH_TAG_REL * float(np.abs(np.asarray(want)).max())
+            if not err <= tol:
+                failures.append(f"mesh {label}: tags differ by {err:.4g} > {tol:.4g}")
+            worst = max(worst, err)
+        return worst
+
+    for r, out in enumerate(ranks):
+        lines = []
+        for label, ref_rows, ref_tags, row_gaps in (
+                ("dp batched", ref_tokens, [ref["audio_tag"]], gaps),
+                ("dp many", ref_many_tokens, [x["audio_tag"] for x in ref_many], many_gaps),
+                ("tp", ref_tokens, [ref["audio_tag"]], gaps)):
+            o = out[label]
+            diff = held(f"rank {r} {label}", o["tokens"], ref_rows, row_gaps)
+            tag_err = tags_within(f"rank {r} {label}", o["tags"], ref_tags)
+            lines.append(f"{label} {seconds_audio / o['seconds']:.2f} audio-s/s, "
+                         f"{len(diff)} of {len(ref_rows)} windows differ {diff}, tags "
+                         f"max |diff| {tag_err:.4g}")
+        for label in ("pp", "sp", "tp encoder"):
+            o = out[label]
+            for part in ("x", "taps"):
+                tol = MESH_ENC_REL * o[f"{part}_max"]
+                if not o[f"{part}_err"] <= tol:
+                    failures.append(f"mesh rank {r} {label}: {part} differs by "
+                                    f"{o[part + '_err']:.4g} > {tol:.4g}")
+            rate = f", {seconds_audio / o['seconds']:.2f} audio-s/s" if "seconds" in o else ""
+            lines.append(f"{label} encoder x max |diff| {o['x_err']:.4g} (of {o['x_max']:.4g}), "
+                         f"taps {o['taps_err']:.4g} (of {o['taps_max']:.4g}){rate}")
+        tp = out["tp"]
+        print(f"mesh rank {r} of {world}, {setting}, {MESH_WINDOWS} windows "
+              f"({seconds_audio:.0f} s audio): " + "; ".join(lines) + f"; tp {world} launches "
+              f"{tp['counts']}, "
+              f"kernel input shapes {tp['shapes']}, tp logit noise {tp['noise']:.4g} [{card}]",
+              flush=True)
+        widths = tp["shapes"]
+        if not (all(s[-1] == D // world for s in widths["K1"])
+                and all(s == (4 * D // world, D) for s in widths["K2-partial"])
+                and all(s == (D // world, D) for s in widths["K3"])
+                and all(s[1] % (H // world) == 0 for s in widths["K4"])):
+            failures.append(f"mesh rank {r}: tp kernels ran at other widths {widths}")
+    print(f"mesh: near-tie threshold twice {noise:.4g}, the larger rounding noise of the decode "
+          f"path's logits teacher-forced at the headline's options (dp: {MESH_WINDOWS} windows "
+          f"as {world} shares against one batch, {dp_noise:.4g}; tp {world} against the whole "
+          f"model, {tp_noise:.4g}) [{card}]", flush=True)
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        return mesh_rank(int(sys.argv[2]), sys.argv[3])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2605,6 +3132,7 @@ def main() -> int:
     training_check(card, model)
     cli_check(card, model)
     spec_check(card, model)
+    mesh_counts = mesh_check(card, model)
     probe_rows, probe_counts = probe_check(card)
     rows.update(probe_rows)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to here [{card}]",
@@ -2616,6 +3144,7 @@ def main() -> int:
                    "K5": int4_counts, "K7": a_counts, "K8-int8": a_counts, "K10": a_counts,
                    "K8": b_counts, "K10-int4": b_counts,
                    "K9": {rows["K9"]["kernel"].name: k9_launches},
+                   "K2-partial": mesh_counts,
                    "P1": probe_counts, "P2-cp": probe_counts, "P2-tma": probe_counts}
     line = {"kernels": [
         {"name": name,

@@ -147,6 +147,55 @@ def test_enc_mlp_kernel_at_the_headline_rows(dev):
     _close(enc_mlp(*args), enc_mlp_plain(*args))
 
 
+@pytest.mark.parametrize("d, tp", [(1280, 2), (1280, 4), (1024, 2), (512, 4), (384, 3)])
+@pytest.mark.parametrize("b, t", [(2, 300), (1, 1500), (1, 129)])
+def test_enc_mlp_partial_kernel_at_rank_widths(dev, d, tp, b, t):
+    """K2-partial over a tensor-parallel rank's F = 4D / tp hidden units
+    (2560 and 1280 at large-v1's tp 2 and 4): its output against its plain
+    version, and the ranks' outputs summed plus x + b2 against the whole
+    K2's at bf16 level."""
+    from whisper_at_tpu_torch.ops.enc_mlp import enc_mlp, enc_mlp_partial, enc_mlp_partial_plain
+
+    gen = torch.Generator(device=dev).manual_seed(d + tp)
+    x, ln_w, ln_b, w1, b1, w2, b2 = _enc_mlp_args(gen, b, t, d)
+    total = torch.zeros_like(x, dtype=torch.float32)
+    for r in range(tp):
+        part = (x, ln_w, ln_b, w1.chunk(tp)[r], b1.chunk(tp)[r],
+                w2.chunk(tp, dim=1)[r].contiguous())
+        out = enc_mlp_partial(*part)
+        _close(out, enc_mlp_partial_plain(*part))
+        total += out.float()
+    whole = enc_mlp(x, ln_w, ln_b, w1, b1, w2, b2)
+    _close((x.float() + total + b2.float()).to(torch.bfloat16), whole)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("d, tp", [(1280, 2), (1280, 4), (1024, 4), (768, 3), (512, 8)])
+def test_kv_quant_kernels_at_rank_widths(dev, bits, d, tp):
+    """K3 and K3-int4 on a tensor-parallel rank's [D / tp, D] weights (640
+    and 320 columns at large-v1's tp 2 and 4; 320 is not a multiple of the
+    128-wide tile): held to the plain version as at full width, and each
+    rank's codes and scales are its heads of the whole layer's within the
+    same bounds."""
+    from whisper_at_tpu_torch.models.layers import unpack4
+    from whisper_at_tpu_torch.ops.kv_quant import project_quantize_kv, project_quantize_kv4
+
+    project = project_quantize_kv4 if bits == 4 else project_quantize_kv
+    gen = torch.Generator(device=dev).manual_seed(d * tp + bits)
+    xa, wk, wv, bv = _kv_quant_args(gen, 3, 300, d)
+    whole = project(xa, wk, wv, bv)
+    n = d // tp
+    codes = (lambda t: unpack4(t).int()) if bits == 4 else (lambda t: t.int())
+    for r in range(tp):
+        rows = slice(r * n, (r + 1) * n)
+        part = _kv_quant_holds(xa, wk[rows].contiguous(), wv[rows].contiguous(),
+                               bv[rows].contiguous(), bits)
+        for i in (0, 2):
+            assert torch.equal(codes(part[i]), codes(whole[i])[..., rows])
+        for i in (1, 3):
+            assert torch.equal(part[i], whole[i][:, r * n // 64:(r + 1) * n // 64])
+
+
 @pytest.mark.parametrize("groups", [1, 4])
 def test_kv_quant_and_cross_decode_kernels(dev, groups):
     from whisper_at_tpu_torch.ops.cross_decode import (

@@ -239,8 +239,8 @@ def test_kernels_registered_with_sources():
     P2); nothing was built or launched by the CPU tests."""
     probes = {"probe_auto": "tools/probe_dma.py:88", "probe_ring_cp": "tools/probe_dma.py:137",
               "probe_ring_tma": "tools/probe_dma.py:137"}
-    assert set(cuda.KERNELS) == {"enc_attention", "enc_mlp", "kv_quant", "kv_quant4",
-                                 "cross_decode", "cross_decode4", "w4_matmul", "dtw",
+    assert set(cuda.KERNELS) == {"enc_attention", "enc_mlp", "enc_mlp_partial", "kv_quant",
+                                 "kv_quant4", "cross_decode", "cross_decode4", "w4_matmul", "dtw",
                                  "enc_flash", "fused_mlp", "fused_mlp_int8", "flash_decode",
                                  "cross_decode_stream", "cross_decode_stream4", *probes}
     for name, kernel in cuda.KERNELS.items():
@@ -251,6 +251,7 @@ def test_kernels_registered_with_sources():
             assert kernel.replaces.startswith("whisper_at_tpu/ops/")
         assert kernel._lib is None
     for name, replaces in (("enc_flash", "flash.py:63"), ("fused_mlp", "fused_mlp.py:101"),
+                           ("enc_mlp_partial", "mlp_enc.py:93"),
                            ("fused_mlp_int8", "fused_mlp.py:101"),
                            ("flash_decode", "flash_decode.py:89"),
                            ("cross_decode_stream", "cross_decode_stream.py:218"),

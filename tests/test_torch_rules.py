@@ -50,7 +50,10 @@ def test_import_loads_no_jax():
             "whisper_at_tpu_torch.serving, whisper_at_tpu_torch.streaming, "
             "whisper_at_tpu_torch.utils.profiling, whisper_at_tpu_torch.audio, "
             "whisper_at_tpu_torch.cli, whisper_at_tpu_torch.normalizers, "
-            "whisper_at_tpu_torch.utils.writers, whisper_at_tpu_torch.version; "
+            "whisper_at_tpu_torch.utils.writers, whisper_at_tpu_torch.version, "
+            "whisper_at_tpu_torch.parallel.mesh, whisper_at_tpu_torch.parallel.tensor, "
+            "whisper_at_tpu_torch.parallel.inference, whisper_at_tpu_torch.parallel.pipeline, "
+            "whisper_at_tpu_torch.parallel.sequence; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
             "'whisper_at_tpu')]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -89,7 +92,7 @@ def test_probe_tool_loads_no_jax():
 
 
 @pytest.mark.parametrize("tool", ["time_k3.py", "time_k8.py", "time_k6_k9.py",
-                                  "profile_spec_torch.py"])
+                                  "profile_spec_torch.py", "mesh_torch.py"])
 def test_timing_tools_load_no_jax(tool):
     """The kernel timing tools, with `chip_smoke.py` that their `main`
     imports, load neither JAX nor the JAX package."""
@@ -314,14 +317,18 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
 
 
 def test_training_refuses_a_mesh(tmp_path):
+    """A mesh that is not a `parallel.mesh.Mesh` is refused with TypeError
+    before anything runs (meshes train: test_torch_parallel_train.py)."""
     from whisper_at_tpu_torch.train import loop, steps
     from whisper_at_tpu_torch.train.tltr import TLTR
 
-    with pytest.raises(NotImplementedError, match="mesh"):
-        loop.train(TLTR(4, 2, 16, "lw_tr_1_4"), "lw_tr_1_4", [], [], exp_dir=str(tmp_path),
-                   mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="module 18"):
-        steps.make_sharded_train_step(object(), "lw_tr_1_4", None, {})
+    head = TLTR(4, 2, 16, "lw_tr_1_4")
+    with pytest.raises(TypeError, match="mesh"):
+        loop.train(head, "lw_tr_1_4", [], [], exp_dir=str(tmp_path / "exp"), mesh=object(),
+                   device="cpu")
+    with pytest.raises(TypeError, match="mesh"):
+        steps.make_sharded_train_step(object(), "lw_tr_1_4", head, 1e-3)
+    assert not (tmp_path / "exp").exists()
 
 
 def test_load_model_reads_a_local_reference_checkpoint(tmp_path):
@@ -342,16 +349,37 @@ def test_load_model_reads_a_local_reference_checkpoint(tmp_path):
         wat.load_model(str(tmp_path / "missing.pt"), device="cpu")
 
 
+@pytest.fixture
+def one_torch_thread():
+    """A decode on one thread: other test processes share the cores, and a
+    thread pool per process oversubscribes them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("kwargs, what", [
     (dict(mesh=object()), "mesh"),
     (dict(kv_layout="heads", kv_quant=True), "fused"),
 ])
-def test_unported_options_raise(kwargs, what):
+def test_unported_options_raise(kwargs, what, one_torch_thread):
+    """Both options are ported now: a mesh that is not a `parallel.mesh.Mesh`
+    raises TypeError, and kv_layout="heads" (the JAX package's layout under
+    a mesh) decodes through the fused layout with its result."""
     model = wat.build_model("tiny", device="cpu")
     audio = np.zeros(16000 * 2, np.int16)
-    kwargs = {"temperature": 0.0, **kwargs}
-    with pytest.raises(NotImplementedError, match=what):
-        wat.transcribe_batched(model, audio, language="en", fp16=False, **kwargs)
+    kwargs = {"temperature": 0.0, "sample_len": 8, **kwargs}
+    if what == "mesh":
+        with pytest.raises(TypeError, match=what):
+            wat.transcribe_batched(model, audio, language="en", fp16=False, **kwargs)
+        return
+    got = wat.transcribe_batched(model, audio, language="en", fp16=False, **kwargs)
+    kwargs.pop("kv_layout")
+    ref = wat.transcribe_batched(model, audio, language="en", fp16=False, **kwargs)
+    assert got["text"] == ref["text"]
+    assert [s["tokens"] for s in got["segments"]] == [s["tokens"] for s in ref["segments"]]
+    np.testing.assert_array_equal(got["audio_tag"], ref["audio_tag"])
 
 
 @pytest.mark.parametrize("options", [
@@ -403,11 +431,40 @@ def test_option_rules_match_jax(options):
 
 
 def test_unported_entry_points_raise():
+    """transcribe_many and both services take a mesh now; anything that is
+    not a `parallel.mesh.Mesh` is refused with TypeError."""
     from whisper_at_tpu_torch.transcribe import transcribe_many
 
     model = wat.build_model("tiny", device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         transcribe_many(model, [np.zeros(1600, np.int16)], mesh=object(), language="en")
+    for service in (wat.TranscriptionService, wat.StreamingService):
+        with pytest.raises(TypeError, match="mesh"):
+            service(model, mesh=object())
+
+
+@pytest.mark.parametrize("without_timestamps", [False, True])
+def test_prefill_pad_slots_leave_the_token_budget_whole(without_timestamps, one_torch_thread):
+    """A 300-token prompt (its last 223 kept) prefills in the 256-slot
+    bucket; the pad slots take no position, so the decode may sample
+    min(sample_len, n_ctx + 1 - len(initial tokens)) tokens, the reference
+    loop's budget (222 for the 227 initial tokens), not n_ctx + 1 - 256."""
+    dims = wat.ModelDimensions(n_mels=80, n_audio_ctx=1500, n_audio_state=64, n_audio_head=2,
+                               n_audio_layer=1, n_vocab=51865, n_text_ctx=448,
+                               n_text_head=2, n_text_state=64, n_text_layer=1)
+    model = wat.build_model("", device="cpu", dims=dims, seed=2)
+    mel = torch.from_numpy((np.random.default_rng(1).standard_normal((80, 3000)) * 0.4
+                            ).astype(np.float32))
+    options = wat.DecodingOptions(language="en", fp16=False, prompt=list(range(300)),
+                                  without_timestamps=without_timestamps,
+                                  suppress_tokens=[-1, 50257])  # never EOT: the whole budget
+    task = wat.decoding.DecodingTask(model, options)
+    initial = len(task.initial_tokens)
+    assert initial == 227 + without_timestamps
+    assert wat.decoding._prefill_bucket(initial) == 256
+    budget = min(task.sample_len, dims.n_text_ctx + 1 - initial)
+    result = wat.decode(model, mel, options)
+    assert len(result.tokens) == budget == 222 - without_timestamps
 
 
 def test_kernel_loader_builds_once_and_counts_exactly_under_threads(monkeypatch):

@@ -170,8 +170,10 @@ def test_transcribe_many_detects_language_per_file(pair, inputs):
 
 
 def test_transcribe_many_refuses_a_mesh_and_conditioning(pair, inputs):
+    """A mesh that is not a `parallel.mesh.Mesh` is refused (meshes run in
+    tests/test_torch_parallel.py), and so is conditioning on earlier text."""
     _, tm = pair
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         transcribe_many(tm, inputs[1:2], mesh=object(), **OPTS)
     with pytest.raises(ValueError, match="condition_on_previous_text"):
         transcribe_many(tm, inputs[1:2], condition_on_previous_text=True, **OPTS)
@@ -350,7 +352,7 @@ def test_service_close_and_conditioning(pair):
     with TranscriptionService(tm, **OPTS) as svc:
         with pytest.raises(ValueError):
             svc.submit(clip(1, 13), condition_on_previous_text=True)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         TranscriptionService(tm, mesh=object(), **OPTS)
 
 

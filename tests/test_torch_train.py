@@ -453,12 +453,14 @@ def test_port_resumes_a_jax_run(tiny_dataset, tmp_path):
 
 
 def test_train_refuses_a_mesh(tiny_dataset, tmp_path):
+    """A mesh that is not a `parallel.mesh.Mesh` is refused with TypeError
+    (meshes train: test_torch_parallel_train.py)."""
     model = TLTR(N_CLASS, N_LAYER, REP_DIM, MODE)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         pt.train(model, MODE, *_loaders(pt, tiny_dataset), exp_dir=str(tmp_path), mesh=object(),
                  device="cpu")
-    with pytest.raises(NotImplementedError, match="module 18"):
-        pt.make_sharded_train_step()
+    with pytest.raises(TypeError, match="mesh"):
+        pt.make_sharded_train_step(object(), MODE, model, 1e-3)
 
 
 def test_run_main_writes_the_artifact_suite(tmp_path):

@@ -96,6 +96,13 @@ struct BiasResidual {
   __device__ __forceinline__ float operator()(float s) const { return s; }
 };
 
+// fc2 of a tensor-parallel rank (K2-partial): its share of the sum alone,
+// from zero; the residual and b2 enter once, after the sum over the ranks
+struct PartialSum {
+  __device__ __forceinline__ float2 init(int, int) const { return make_float2(0.f, 0.f); }
+  __device__ __forceinline__ float operator()(float s) const { return s; }
+};
+
 template <class Epi>
 int gemm(int bn, const void* a, const void* b, void* c, const Epi& epi, int M, int N, int K,
          int blocks, cudaStream_t s) {
@@ -126,5 +133,25 @@ extern "C" int enc_mlp_bf16(const void* x, const void* ln_w, const void* ln_b,
     rc = gemm(bn2, h, w2, out,
               BiasResidual{static_cast<const float*>(b2), static_cast<const bf16*>(x), M, D},
               M, D, F, blocks2, s);
+  return rc;
+}
+
+// K2-partial, a tensor-parallel rank's MLP: out = h W2^T with h = gelu(LN(x)
+// W1^T + b1) over this rank's F hidden units (w1 [F, D], b1 [F], w2 [D, F]:
+// its rows of fc1 and columns of fc2), with no residual and no b2; the
+// caller sums `out` over the ranks and then adds x + b2. The same launches
+// as enc_mlp_bf16 but fc2's epilogue (PartialSum).
+extern "C" int enc_mlp_partial_bf16(const void* x, const void* ln_w, const void* ln_b,
+                                    const void* w1, const void* b1, const void* w2, void* xn,
+                                    void* h, void* out, int M, int D, int F, int bn1,
+                                    int blocks1, int bn2, int blocks2, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  ln_rows<<<(M + 7) / 8, 256, 0, s>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(ln_w),
+      static_cast<const float*>(ln_b), static_cast<bf16*>(xn), M, D);
+  int rc = static_cast<int>(cudaGetLastError());
+  if (rc == 0)
+    rc = gemm(bn1, xn, w1, h, BiasGelu{static_cast<const float*>(b1)}, M, F, D, blocks1, s);
+  if (rc == 0) rc = gemm(bn2, h, w2, out, PartialSum{}, M, D, F, blocks2, s);
   return rc;
 }

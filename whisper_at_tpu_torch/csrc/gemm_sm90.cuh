@@ -170,15 +170,24 @@ struct Ring {
 };
 
 // The tile list: N fastest inside a 128-row panel, the panels of A[0],
-// then those of A[1], ...
+// then those of A[1], ... The N columns come in runs ("parts") of n_split,
+// one a map of B (K2: one part; K3: K and V), each covered by
+// ceil(n_split / bn) tiles, so no tile straddles two parts; a part's last
+// tile may run past its n_split columns (K3 at a tensor-parallel width of
+// 320), whose rows of B load as zeros and whose columns the epilogue drops.
 struct Tiles {
   int panels;      // 128-row panels of one matrix of A
   int n_tiles_n, count, nk;
-  int n_split;     // B's rows from here on come from the second map
+  int n_split;     // columns of a part: B's rows from here on come from the second map
+  int part_tiles;  // tiles of one part
   __device__ __forceinline__ int panel(int t) const { return t / n_tiles_n; }
   __device__ __forceinline__ int m0(int t) const { return (panel(t) % panels) * BM; }
   __device__ __forceinline__ int z(int t) const { return panel(t) / panels; }
-  __device__ __forceinline__ int n0(int t, int bn) const { return (t % n_tiles_n) * bn; }
+  // the tile's first column: part * n_split + its offset in the part
+  __device__ __forceinline__ int n0(int t, int bn) const {
+    const int j = t % n_tiles_n;
+    return (j / part_tiles) * n_split + (j % part_tiles) * bn;
+  }
 };
 
 template <int BN>
@@ -321,12 +330,14 @@ inline int encode_matrix(EncodeTiled fn, CUtensorMap* map, const void* x, int ro
                    box_rows, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B);
 }
 
-// The tile list of Z matrices of A of M rows, N columns of B (the first
-// n_split from the first map), depth K, at block width bn.
+// The tile list of Z matrices of A of M rows, N columns of B in parts of
+// n_split (N a multiple of n_split; the first part from the first map),
+// depth K, at block width bn.
 inline Tiles tiles(int Z, int M, int N, int n_split, int K, int bn) {
   Tiles tl;
   tl.panels = (M + BM - 1) / BM;
-  tl.n_tiles_n = N / bn;
+  tl.part_tiles = (n_split + bn - 1) / bn;
+  tl.n_tiles_n = (N / n_split) * tl.part_tiles;
   tl.count = Z * tl.panels * tl.n_tiles_n;
   tl.nk = K / BK;
   tl.n_split = n_split;

@@ -9,6 +9,12 @@
 // K4's input: K and V are row-major int8 [B, Ta_pad, H*64] (the 64 codes of
 // one (position, head) are contiguous) and the scales fp32 [B, H, Ta_pad].
 // Rows t >= Ta get zero codes and zero scales.
+// A tensor-parallel rank projects its own heads: Wk and Wv [N, D] with
+// N = D / tp (a multiple of 64), codes [B, Ta_pad, N] and scales
+// [B, N/64, Ta_pad]; at N = D this is the whole layer. N need not divide
+// by the block width (320 at tp 4 of large-v1): each of K and V takes
+// ceil(N / bn) tiles, the last one's excess columns load zero weights and
+// are not stored.
 // The int4 entry (kv_quant4_bf16, bits = 4 of the TPU kernel, qmax 7 at
 // kv_quant.py:123) runs the same GEMM; its epilogue quantizes to [-7, 7] and
 // writes packed bytes [B, Ta_pad, D/2] in the pack4 layout of
@@ -51,18 +57,18 @@ __device__ __forceinline__ void st_shared_u8(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.u8 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
 }
 
-// The quantizing epilogue of gemm_sm90.cuh: columns [0, D) of the product
-// are K, [D, 2D) are V (+ bv); each 64-column chunk is one head.
+// The quantizing epilogue of gemm_sm90.cuh: columns [0, N) of the product
+// are K, [N, 2N) are V (+ bv); each 64-column chunk is one head.
 template <int BITS>
 struct KvQuantize {
   static constexpr int ROW = EPI_COLS * BITS / 8;  // bytes of a staged row of codes: 64 or 32
-  // the codes [B, Ta_pad, D * BITS / 8] of K and of V, box {ROW, 64, 1},
+  // the codes [B, Ta_pad, N * BITS / 8] of K and of V, box {ROW, 64, 1},
   // swizzled over ROW bytes
   CUtensorMap kmap, vmap;
   const bf16* bv;
   float* ks;  // scales [B, H, Ta_pad]
   float* vs;
-  int Ta, Ta_pad, D;
+  int Ta, Ta_pad, N;
 
   __device__ __forceinline__ float2 init(int, int) const { return make_float2(0.f, 0.f); }
 
@@ -73,18 +79,21 @@ struct KvQuantize {
     return o ^ (((o >> 7) & (ROW / 16 - 1)) << 4);
   }
 
-  template <int N>
-  __device__ __forceinline__ void store(float (&acc)[N], uint32_t bufs, int wg, int z,
+  template <int NA>
+  __device__ __forceinline__ void store(float (&acc)[NA], uint32_t bufs, int wg, int z,
                                         int row_g, int n0) const {
     constexpr float QMAX = BITS == 8 ? 127.f : 7.f;
     const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32, quad = lane & 3;
-    const bool is_v = n0 >= D;
-    const int col0 = is_v ? n0 - D : n0;
+    const bool is_v = n0 >= N;
+    const int col0 = is_v ? n0 - N : n0;
     const int r = warp * 16 + (lane >> 2);  // this thread's rows r and r + 8 of the 64
     const bool valid[2] = {row_g + r < Ta, row_g + r + 8 < Ta};
-    float* scales = (is_v ? vs : ks) + ((size_t)z * (D / 64) + col0 / 64) * Ta_pad + row_g + r;
+    float* scales = (is_v ? vs : ks) + ((size_t)z * (N / 64) + col0 / 64) * Ta_pad + row_g + r;
 #pragma unroll
-    for (int c = 0; c < 2 * N / EPI_COLS; ++c) {
+    for (int c = 0; c < 2 * NA / EPI_COLS; ++c) {
+      // a part's last tile past its N columns (the same for the whole
+      // warpgroup): nothing to store
+      if (col0 + c * EPI_COLS >= N) continue;
       // the chunk's sums rounded to bf16 as the reference rounds them (V:
       // + bv, rounded again), in place, two at a time, and each row's amax
       // over the quad
@@ -158,10 +167,10 @@ struct KvQuantize {
 
 template <int BITS>
 int launch(const void* xa, const void* wk, const void* wv, const void* bv, void* kq, void* ks,
-           void* vq, void* vs, int B, int Ta, int Ta_pad, int D, int bn, int blocks,
+           void* vq, void* vs, int B, int Ta, int Ta_pad, int D, int N, int bn, int blocks,
            void* stream) {
-  if (D % 128 || D % bn || Ta_pad % gemm_sm90::BM || Ta < 1 || Ta > Ta_pad || B < 1 ||
-      blocks < 1)
+  if (D % 128 || N % 64 || N < 64 || N > D || Ta_pad % gemm_sm90::BM || Ta < 1 ||
+      Ta > Ta_pad || B < 1 || blocks < 1 || (bn != 128 && bn != 256))
     return static_cast<int>(cudaErrorInvalidValue);
   EncodeTiled fn;
   const cudaError_t e = encode_function(&fn);
@@ -172,23 +181,23 @@ int launch(const void* xa, const void* wk, const void* wv, const void* bv, void*
   epi.vs = static_cast<float*>(vs);
   epi.Ta = Ta;
   epi.Ta_pad = Ta_pad;
-  epi.D = D;
+  epi.N = N;
   constexpr int ROW = KvQuantize<BITS>::ROW;
   constexpr CUtensorMapSwizzle codes_swizzle =
       BITS == 8 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
   CUtensorMap am, bk, bvm;
   int rc = encode_3d(fn, &am, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, xa, D, Ta, B, gemm_sm90::BK,
                      gemm_sm90::BM, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B);
-  if (rc == 0) rc = gemm_sm90::encode_matrix(fn, &bk, wk, D, D, bn, gemm_sm90::BK);
-  if (rc == 0) rc = gemm_sm90::encode_matrix(fn, &bvm, wv, D, D, bn, gemm_sm90::BK);
+  if (rc == 0) rc = gemm_sm90::encode_matrix(fn, &bk, wk, N, D, bn, gemm_sm90::BK);
+  if (rc == 0) rc = gemm_sm90::encode_matrix(fn, &bvm, wv, N, D, bn, gemm_sm90::BK);
   if (rc == 0)
-    rc = encode_3d(fn, &epi.kmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, kq, D * BITS / 8, Ta_pad, B,
+    rc = encode_3d(fn, &epi.kmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, kq, N * BITS / 8, Ta_pad, B,
                    ROW, WG_ROWS, codes_swizzle, CU_TENSOR_MAP_L2_PROMOTION_NONE);
   if (rc == 0)
-    rc = encode_3d(fn, &epi.vmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, vq, D * BITS / 8, Ta_pad, B,
+    rc = encode_3d(fn, &epi.vmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, vq, N * BITS / 8, Ta_pad, B,
                    ROW, WG_ROWS, codes_swizzle, CU_TENSOR_MAP_L2_PROMOTION_NONE);
   if (rc != 0) return rc;
-  const gemm_sm90::Tiles tl = gemm_sm90::tiles(B, Ta_pad, 2 * D, D, D, bn);
+  const gemm_sm90::Tiles tl = gemm_sm90::tiles(B, Ta_pad, 2 * N, N, D, bn);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bn == 256) return gemm_sm90::launch<256>(am, bk, bvm, epi, tl, blocks, s);
   if (bn == 128) return gemm_sm90::launch<128>(am, bk, bvm, epi, tl, blocks, s);
@@ -197,21 +206,21 @@ int launch(const void* xa, const void* wk, const void* wv, const void* bv, void*
 
 }  // namespace
 
-// xa [B, Ta, D] bf16; wk, wv [D, D] bf16 (torch [out, in]); bv [D] bf16.
-// kq, vq [B, Ta_pad, D] int8; ks, vs [B, D/64, Ta_pad] fp32; all contiguous
-// and 16-byte aligned. Requires D % 128 == 0, D % bn == 0 and
+// xa [B, Ta, D] bf16; wk, wv [N, D] bf16 (torch [out, in]); bv [N] bf16.
+// kq, vq [B, Ta_pad, N] int8; ks, vs [B, N/64, Ta_pad] fp32; all contiguous
+// and 16-byte aligned. Requires D % 128 == 0, N % 64 == 0, N <= D and
 // Ta_pad % 128 == 0; bn (256 or 128) and blocks are ops/kv_quant.py's plan.
 extern "C" int kv_quant_bf16(const void* xa, const void* wk, const void* wv,
                              const void* bv, void* kq, void* ks, void* vq,
-                             void* vs, int B, int Ta, int Ta_pad, int D, int bn,
+                             void* vs, int B, int Ta, int Ta_pad, int D, int N, int bn,
                              int blocks, void* stream) {
-  return launch<8>(xa, wk, wv, bv, kq, ks, vq, vs, B, Ta, Ta_pad, D, bn, blocks, stream);
+  return launch<8>(xa, wk, wv, bv, kq, ks, vq, vs, B, Ta, Ta_pad, D, N, bn, blocks, stream);
 }
 
-// The int4 entry: the same arguments, kq and vq packed int8 [B, Ta_pad, D/2].
+// The int4 entry: the same arguments, kq and vq packed int8 [B, Ta_pad, N/2].
 extern "C" int kv_quant4_bf16(const void* xa, const void* wk, const void* wv,
                               const void* bv, void* kq, void* ks, void* vq,
-                              void* vs, int B, int Ta, int Ta_pad, int D, int bn,
+                              void* vs, int B, int Ta, int Ta_pad, int D, int N, int bn,
                               int blocks, void* stream) {
-  return launch<4>(xa, wk, wv, bv, kq, ks, vq, vs, B, Ta, Ta_pad, D, bn, blocks, stream);
+  return launch<4>(xa, wk, wv, bv, kq, ks, vq, vs, B, Ta, Ta_pad, D, N, bn, blocks, stream);
 }

@@ -67,7 +67,7 @@ class DecodingOptions:
     weight_bits: int = 8              # 8, or 4 (K5)
     self_kv_quant: bool = False       # quantized self-attention cache
     self_kv_bits: int = 8
-    kv_layout: Optional[str] = None   # only the fused K3/K4 layout is ported
+    kv_layout: Optional[str] = None   # "fused" or "heads": both decode through K3/K4
     kv_bits: int = 8
     draft_model: Optional[object] = None
     draft_lookahead: int = 8
@@ -92,13 +92,17 @@ def apply_logit_filters(logits: torch.Tensor, t: Union[int, torch.Tensor],
                         prev1: torch.Tensor, prev2: torch.Tensor, last_ts: torch.Tensor,
                         suppress_mask: torch.Tensor, *, eot: int, ts_begin: int,
                         blank_token: int, max_initial_ts_index: Optional[int],
-                        suppress_blank: bool, with_ts_rules: bool) -> torch.Tensor:
+                        suppress_blank: bool, with_ts_rules: bool,
+                        return_margin: bool = False):
     """Suppress-blank, suppress-tokens and the timestamp rules on [B, V]
     logits at sampled step t: a Python int (every row at the same step), or
     a [B] tensor (the speculative loop's rows, each at its own step).
     prev1/prev2 are the tokens sampled at steps t-1 and t-2 (ignored before
     they exist); last_ts is each row's latest sampled timestamp token, or
-    -1."""
+    -1. With return_margin, also each row's margin of the last rule, the
+    timestamps' log-sum-exp minus the best text logit [B] (inf without the
+    timestamp rules): how far the choice between text and a timestamp is
+    from flipping."""
     idx = torch.arange(logits.shape[-1], device=logits.device)[None, :]
     at_start = t == 0
     per_row = isinstance(at_start, torch.Tensor)
@@ -112,6 +116,8 @@ def apply_logit_filters(logits: torch.Tensor, t: Union[int, torch.Tensor],
         logits = at_start_fill(logits, (idx == blank_token) | (idx == eot))
     logits = logits + suppress_mask[None, :]
     if not with_ts_rules:
+        if return_margin:
+            return logits, torch.full(logits.shape[:1], float("inf"), device=logits.device)
         return logits
 
     logits = logits.masked_fill(idx == ts_begin - 1, NEG_INF)  # <|notimestamps|>
@@ -131,7 +137,8 @@ def apply_logit_filters(logits: torch.Tensor, t: Union[int, torch.Tensor],
     # timestamp (the softmax normaliser cancels, so raw logits compare)
     ts_mass = torch.logsumexp(logits.masked_fill(idx < ts_begin, NEG_INF), dim=-1)
     max_text = logits.masked_fill(idx >= ts_begin, NEG_INF).amax(dim=-1)
-    return logits.masked_fill((ts_mass > max_text)[:, None] & (idx < ts_begin), NEG_INF)
+    out = logits.masked_fill((ts_mass > max_text)[:, None] & (idx < ts_begin), NEG_INF)
+    return (out, ts_mass - max_text) if return_margin else out
 
 
 def _prefill(params, cross: CrossKV, buf: torch.Tensor, *, pad: int, sot_slot: int,
@@ -143,7 +150,7 @@ def _prefill(params, cross: CrossKV, buf: torch.Tensor, *, pad: int, sot_slot: i
     share their audio row of `cross`."""
     b, total = buf.shape
     group = b // cross.k.shape[1]
-    d = params.token_embedding.weight.shape[1]
+    d = params.width
     cache = init_cache(len(params.blocks), b, total, d, compute_dtype, n_head,
                        quantize=self_kv_quant, bits=self_kv_bits, device=buf.device)
     hidden = decoder_forward(params, buf[:, :prefill], cross, cache, 0, pad, n_head,
@@ -246,7 +253,7 @@ def spec_sample_loop(params, cross, draft_params, draft_cross, buf: torch.Tensor
                 with_ts_rules=with_ts_rules)
 
     def caches(p, heads):
-        return init_cache(len(p.blocks), b, cache_ctx, p.token_embedding.weight.shape[1],
+        return init_cache(len(p.blocks), b, cache_ctx, p.width,
                           compute_dtype, heads, device=dev)
 
     v_cache, d_cache = caches(params, n_head), caches(draft_params, n_head_draft)
@@ -524,8 +531,8 @@ class DecodingTask:
                 raise ValueError("draft model must share the verifier's vocabulary")
             if options.draft_lookahead < 1:
                 raise ValueError("draft_lookahead must be >= 1")
-        if options.kv_layout not in (None, "fused"):
-            raise NotImplementedError("only the fused cross-KV layout is ported")
+        if options.kv_layout not in (None, "fused", "heads"):
+            raise ValueError(f"kv_layout must be 'fused' or 'heads', got {options.kv_layout!r}")
         return options
 
     def _get_initial_tokens(self) -> Tuple[int, ...]:
@@ -569,7 +576,7 @@ class DecodingTask:
         options, tokenizer = self.options, self.tokenizer
         return dict(
             pad=pad, sot_slot=pad + self.sot_index, suppress_mask=self.suppress_mask,
-            prefill=prefill, max_steps=max_steps, n_head=self.model.dims.n_text_head,
+            prefill=prefill, max_steps=max_steps, n_head=self.model.text_heads,
             compute_dtype=compute_dtype, eot=tokenizer.eot, ts_begin=tokenizer.timestamp_begin,
             blank_token=self.blank_token, no_speech_id=tokenizer.no_speech,
             max_initial_ts_index=self.max_initial_ts_index,
@@ -583,8 +590,10 @@ class DecodingTask:
         audio_features, at_features = model.embed_audio(mel, options.fp16)
 
         prefill = _prefill_bucket(len(self.initial_tokens))
-        total = min(prefill + self.sample_len, self.n_ctx + 1)
         pad = prefill - len(self.initial_tokens)
+        # the pad slots are masked and take no position: they do not count
+        # against the n_ctx + 1 slots of the reference's token budget
+        total = min(prefill + self.sample_len, self.n_ctx + 1 + pad)
         buf = torch.zeros((n_audio, total), dtype=torch.long, device=mel.device)
         buf[:, pad:prefill] = torch.tensor(self.initial_tokens, device=mel.device)
 
@@ -601,7 +610,7 @@ class DecodingTask:
         n_group = self.n_group
         buf = buf.repeat_interleave(n_group, dim=0)
         params = model.decoder_params_decode(options.weight_quant, options.weight_bits)
-        cross = precompute_cross_kv(params, audio_features, model.dims.n_text_head,
+        cross = precompute_cross_kv(params, audio_features, model.text_heads,
                                     compute_dtype, quantize=options.kv_quant,
                                     bits=options.kv_bits)
         loop_args = self._loop_args(pad, prefill, total - prefill, compute_dtype)
@@ -649,10 +658,10 @@ class DecodingTask:
         draft_features, _ = draft.embed_audio(mel, options.fp16)
         draft_params = draft.decoder_params_decode()
         draft_cross = precompute_cross_kv(draft_params, draft_features,
-                                          draft.dims.n_text_head, compute_dtype)
+                                          draft.text_heads, compute_dtype)
         buf, sum_lp, no_speech, self.spec_stats = spec_sample_loop(
             params, cross, draft_params, draft_cross, buf,
-            lookahead=options.draft_lookahead, n_head_draft=draft.dims.n_text_head,
+            lookahead=options.draft_lookahead, n_head_draft=draft.text_heads,
             **loop_args)
         _SPEC_STATS.stats = self.spec_stats
         return buf, sum_lp, no_speech

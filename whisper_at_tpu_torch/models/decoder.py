@@ -29,6 +29,15 @@ The full (non-incremental) forward, `decoder_forward_with_qk`, runs over
 whole token rows on the plain decoder weights: word timing reads the
 cross-attention logits of the alignment heads it keeps, `Whisper.logits`
 (language detection) reads its logits alone.
+
+Under tensor parallelism (`parallel.inference.place_model_tp`) each rank
+holds its heads' columns of q, k and v, taken before they are fused, so the
+fused [q|k|v] splits into the rank's own heads; `n_head` is then the
+rank's count and the caches hold its heads alone (`Parts.width` is the
+width a rank's self-attention holds). K3 projects the rank's cross K/V
+heads and K4 reads them. FUSED_MLP takes the unfused MLP there (K8 has no
+partial-sum mode), and the alignment heads' logits are gathered from the
+ranks that hold them.
 """
 
 import os
@@ -123,7 +132,8 @@ def fuse_decoder_blocks(decoder: TextDecoder) -> Parts:
                             mlp=blk.mlp, mlp_ln=blk.mlp_ln))
     return Parts(token_embedding=decoder.token_embedding,
                  positional_embedding=decoder.positional_embedding,
-                 blocks=nn.ModuleList(blocks), ln=decoder.ln)
+                 blocks=nn.ModuleList(blocks), ln=decoder.ln,
+                 width=decoder.blocks[0].attn.query.weight.shape[0])
 
 
 def quantize_decoder_blocks(fused: Parts, bits: int = 8) -> Parts:
@@ -145,7 +155,7 @@ def quantize_decoder_blocks(fused: Parts, bits: int = 8) -> Parts:
             mlp_ln=blk.mlp_ln))
     return Parts(token_embedding=fused.token_embedding,
                  positional_embedding=fused.positional_embedding,
-                 blocks=nn.ModuleList(blocks), ln=fused.ln)
+                 blocks=nn.ModuleList(blocks), ln=fused.ln, width=fused.width)
 
 
 @dataclass
@@ -214,9 +224,11 @@ def precompute_cross_kv(params: Parts, xa: torch.Tensor, n_head: int,
                         compute_dtype=torch.float32, quantize: bool = False,
                         bits: int = 8) -> CrossKV:
     """Cross-attention K/V of every layer from the encoded audio xa [A, Ta, D];
-    quantized by K3 at `bits` (8 or 4) when asked."""
+    quantized by K3 at `bits` (8 or 4) when asked. Under tensor parallelism
+    the K/V of the rank's n_head heads."""
     xa = xa.to(compute_dtype).contiguous()
-    a, ta, d = xa.shape
+    a, ta, _ = xa.shape
+    d = params.blocks[0].cross_attn.key.weight.shape[0]  # the heads this rank holds
     n_layer = len(params.blocks)
     if not quantize:
         k = torch.empty((n_layer, a, ta, d), dtype=compute_dtype, device=xa.device)
@@ -310,7 +322,8 @@ def decoder_forward(params: Parts, tokens: torch.Tensor, cross: CrossKV,
     # K8 takes at most MAX_ROWS rows (every decode step, the smaller
     # prefills); a larger prefill takes the unfused MLP, as QuantLinear4
     # leaves rows past K5's limit to torch.matmul
-    fused = FUSED_MLP and tokens.numel() <= k8.MAX_ROWS
+    fused = (FUSED_MLP and tokens.numel() <= k8.MAX_ROWS
+             and getattr(params.blocks[0].mlp[2], "tp", None) is None)
     for i, blk in enumerate(params.blocks):
         q, k_new, v_new = blk.attn.qkv(blk.attn_ln(x)).chunk(3, dim=-1)
         qh = _split_heads(q, n_head)
@@ -420,6 +433,10 @@ def decoder_forward_with_qk(decoder: TextDecoder, tokens: torch.Tensor, xa: torc
     head) order. Rows are independent under the causal mask, so a
     right-padded row gives its valid positions' exact-length values."""
     head_mask = torch.as_tensor(head_mask, dtype=torch.bool)
+    tp = getattr(decoder.blocks[0].attn.query, "tp", None)
+    every_head = head_mask
+    if tp is not None:  # this rank's heads of the mask
+        head_mask = head_mask[:, tp.rank * n_head:(tp.rank + 1) * n_head]
     b, s = tokens.shape
     dev = tokens.device
     x = (decoder.token_embedding.weight[tokens]
@@ -445,5 +462,9 @@ def decoder_forward_with_qk(decoder: TextDecoder, tokens: torch.Tensor, xa: torc
             qk_sel[:, slot:slot + len(heads)] = qk[:, heads].to(buf_dtype)
             slot += len(heads)
         x = x + blk.mlp[2](gelu(blk.mlp[0](blk.mlp_ln(x))))
+    if tp is not None and bool(every_head.any()):
+        from ..parallel.tensor import gather_head_logits
+
+        qk_sel = gather_head_logits(qk_sel, every_head, tp)
     return project_logits(decoder, decoder.ln(x)), qk_sel
 

@@ -12,6 +12,11 @@ The attention and MLP implementations are chosen as in the JAX package
 default), "flash" (K7) or "xla" (the plain attention); mlp_impl "fused"
 (K2, the default) or "xla" (the plain MLP). `Whisper.embed_audio` reads
 them from WHISPER_AT_TPU_ENC_ATTN and WHISPER_AT_TPU_ENC_MLP per call.
+
+Under tensor parallelism (`parallel.inference.place_model_tp`) a block
+holds its rank's heads and hidden units and n_head is the rank's count: the
+kernels run on the rank's shard, and the fused MLP is K2-partial, its
+sum over the ranks added to the residual and fc2's bias once.
 """
 
 from typing import Tuple
@@ -22,7 +27,7 @@ from torch import nn
 
 from ..ops.enc_attention import enc_attention
 from ..ops.enc_flash import enc_flash
-from ..ops.enc_mlp import enc_mlp
+from ..ops.enc_mlp import enc_mlp, enc_mlp_partial
 from .layers import (
     LayerNorm,
     ResidualAttentionBlock,
@@ -87,25 +92,45 @@ def _stem(encoder: AudioEncoder, mel: torch.Tensor, compute_dtype) -> torch.Tens
 
 def _blocks(encoder: AudioEncoder, x: torch.Tensor, n_head: int, attn_impl: str,
             mlp_impl: str):
-    """Each block's output in turn, the attention on K1 ("single"), K7
-    ("flash") or the plain attention ("xla"), the MLP half-block on K2
-    ("fused") or the plain chain ("xla")."""
+    """Each block's output in turn (`run_blocks` over every block)."""
+    return run_blocks(encoder.blocks, x, n_head, attn_impl, mlp_impl)
+
+
+def run_blocks(blocks, x: torch.Tensor, n_head: int, attn_impl: str = "single",
+               mlp_impl: str = "fused"):
+    """Each of `blocks`' outputs in turn, the attention on K1 ("single"),
+    K7 ("flash") or the plain attention ("xla"), the MLP half-block on K2
+    ("fused") or the plain chain ("xla"). A pipeline stage runs its own
+    slice of the blocks through it."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl {attn_impl!r} is not one of {ATTN_IMPLS}")
     if mlp_impl not in MLP_IMPLS:
         raise ValueError(f"mlp_impl {mlp_impl!r} is not one of {MLP_IMPLS}")
     attend = {"single": enc_attention, "flash": enc_flash, "xla": attention}[attn_impl]
-    for block in encoder.blocks:
+    for block in blocks:
         h = block.attn_ln(x)
         q, k, v = block.attn.query(h), block.attn.key(h), block.attn.value(h)
         x = x + block.attn.out(attend(q, k, v, n_head))
-        fc1, fc2 = block.mlp[0], block.mlp[2]
-        if mlp_impl == "fused":
-            x = enc_mlp(x, block.mlp_ln.weight, block.mlp_ln.bias,
-                        fc1.weight, fc1.bias, fc2.weight, fc2.bias)
-        else:
-            x = x + fc2(gelu(fc1(block.mlp_ln(x))))
+        x = mlp_block(block, x, mlp_impl)
         yield x
+
+
+def mlp_block(block, x: torch.Tensor, mlp_impl: str = "fused") -> torch.Tensor:
+    """x + fc2(gelu(fc1(LN(x)))) of one block: K2 ("fused"; K2-partial and
+    a sum over the tp ranks under tensor parallelism) or the plain chain."""
+    fc1, fc2 = block.mlp[0], block.mlp[2]
+    tp = getattr(fc2, "tp", None)  # a tensor-parallel row split
+    if mlp_impl == "fused" and tp is not None:
+        from ..parallel.tensor import reduce_from_tp
+
+        part = enc_mlp_partial(x, block.mlp_ln.weight, block.mlp_ln.bias,
+                               fc1.weight, fc1.bias, fc2.weight)
+        s = reduce_from_tp(part, tp)
+        return (x.float() + s.float() + fc2.bias.float()).to(x.dtype)
+    if mlp_impl == "fused":
+        return enc_mlp(x, block.mlp_ln.weight, block.mlp_ln.bias,
+                       fc1.weight, fc1.bias, fc2.weight, fc2.bias)
+    return x + fc2(gelu(fc1(block.mlp_ln(x))))
 
 
 def encoder_apply(encoder: AudioEncoder, mel: torch.Tensor, n_head: int,

@@ -162,19 +162,32 @@ class QuantLinear4(nn.Module):
         return y
 
 
-def quantize_linear(lin: Linear, bits: int = 8):
-    """Symmetric per-output-channel quantization of a linear layer:
-    scale = amax over the input axis * fp32(1 / qmax) + 1e-12, the
-    JAX package's `_quantize_w` as XLA compiles it (a multiply by the
-    reciprocal), so the scales are its own bit for bit; qmax 127 for bits=8
-    (a QuantLinear) and 7 for bits=4 (a QuantLinear4, codes packed)."""
+def quantize_weight(weight: torch.Tensor, bits: int = 8,
+                    amax: Optional[torch.Tensor] = None):
+    """(codes, fp32 scales [out]) of a [out, in] weight: scale = amax over
+    the input axis * fp32(1 / qmax) + 1e-12, codes int8 (bits 8) or packed
+    by `pack4` (bits 4). `amax`, when given, replaces the weight's own (a
+    tensor-parallel slice of the input axis keeps the whole weight's)."""
     qmax = QMAX[bits]
-    w = lin.weight.detach().float()
-    scale = w.abs().amax(dim=1) * (1.0 / qmax) + 1e-12
+    w = weight.detach().float()
+    if amax is None:
+        amax = w.abs().amax(dim=1)
+    scale = amax * (1.0 / qmax) + 1e-12
     q = torch.clamp(torch.round(w / scale[:, None]), -qmax, qmax).to(torch.int8)
-    if bits == 4:
-        return QuantLinear4(pack4(q), scale, lin.bias)
-    return QuantLinear(q, scale, lin.bias)
+    return (pack4(q) if bits == 4 else q), scale
+
+
+def quantize_linear(lin: Linear, bits: int = 8):
+    """Symmetric per-output-channel quantization of a linear layer
+    (`quantize_weight`): the JAX package's `_quantize_w` as XLA compiles it
+    (a multiply by the reciprocal), so the scales are its own bit for bit;
+    qmax 127 for bits=8 (a QuantLinear) and 7 for bits=4 (a QuantLinear4,
+    codes packed). A layer with its own `quantized` (a tensor-parallel row
+    split) quantizes itself."""
+    if hasattr(lin, "quantized"):
+        return lin.quantized(bits)
+    codes, scale = quantize_weight(lin.weight, bits)
+    return (QuantLinear4 if bits == 4 else QuantLinear)(codes, scale, lin.bias)
 
 
 def uniform_(t: torch.Tensor, lo: float, hi: float, gen: torch.Generator) -> None:
@@ -237,7 +250,10 @@ class ResidualAttentionBlock(nn.Module):
         """Plain self-attention block (the TL-TR head's transformer layers)."""
         h = self.attn_ln(x)
         q, k, v = self.attn.query(h), self.attn.key(h), self.attn.value(h)
-        x = x + self.attn.out(attention(q, k, v, n_head, mask=mask))
+        # a tensor-parallel split attends over its own columns
+        attend = getattr(self.attn.query, "attend", None)
+        a = attend(q, k, v, n_head, mask) if attend else attention(q, k, v, n_head, mask=mask)
+        x = x + self.attn.out(a)
         h = self.mlp_ln(x)
         return x + self.mlp[2](gelu(self.mlp[0](h)))
 

@@ -58,6 +58,18 @@ class Whisper(nn.Module):
         self.requires_grad_(False)
         self._decode_params = {}
         self.alignment_heads = default_alignment_heads(dims)
+        self.tp = None     # the tensor-parallel axis (parallel.inference.place_model_tp)
+        self._mesh = None  # the mesh the model was placed on
+
+    @property
+    def text_heads(self) -> int:
+        """Decoder heads this rank holds: all, or n_text_head / tp."""
+        return self.dims.n_text_head // (self.tp.size if self.tp else 1)
+
+    @property
+    def audio_heads(self) -> int:
+        """Encoder heads this rank holds: all, or n_audio_head / tp."""
+        return self.dims.n_audio_head // (self.tp.size if self.tp else 1)
 
     @property
     def device(self) -> torch.device:
@@ -105,7 +117,7 @@ class Whisper(nn.Module):
         kernels, read on every call as the JAX package reads them."""
         if mel.dim() == 2:
             mel = mel[None]
-        return encoder_apply(self.encoder, mel, self.dims.n_audio_head,
+        return encoder_apply(self.encoder, mel, self.audio_heads,
                              self.compute_dtype(fp16),
                              attn_impl=os.environ.get("WHISPER_AT_TPU_ENC_ATTN", "single"),
                              mlp_impl=os.environ.get("WHISPER_AT_TPU_ENC_MLP", "fused"))
@@ -124,7 +136,7 @@ class Whisper(nn.Module):
         """Full (non-incremental) decoder forward -> fp32 logits [B, S, V]."""
         no_heads = np.zeros_like(self.alignment_heads)
         return decoder_forward_with_qk(self.decoder, tokens, audio_features, no_heads,
-                                       self.dims.n_text_head, self.compute_dtype(fp16))[0]
+                                       self.text_heads, self.compute_dtype(fp16))[0]
 
 
 def build_model(name: str, device="cuda", dtype=torch.float32, seed: int = 0,

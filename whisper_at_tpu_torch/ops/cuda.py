@@ -98,8 +98,10 @@ class CudaKernel:
         os.makedirs(BUILD_DIR, exist_ok=True)
         log = open(lib + ".log", "w")
         try:
+            # a file of this process's own, moved into place whole: ranks of
+            # a mesh on one host may build the same library at once
             return subprocess.Popen(
-                [nvcc_path(), *NVCC_FLAGS, "-o", lib + ".tmp",
+                [nvcc_path(), *NVCC_FLAGS, "-o", f"{lib}.{os.getpid()}.tmp",
                  os.path.join(CSRC, self.source)],
                 stdout=log, stderr=subprocess.STDOUT)
         finally:
@@ -112,7 +114,7 @@ class CudaKernel:
         if proc.wait() != 0:
             with open(lib + ".log") as f:
                 raise RuntimeError(f"nvcc failed for {self.source}:\n{f.read()}")
-        os.replace(lib + ".tmp", lib)
+        os.replace(f"{lib}.{os.getpid()}.tmp", lib)
 
     def build_log(self) -> str:
         path = self.library_path() + ".log"

@@ -43,7 +43,7 @@ def _impls() -> dict:
 
 
 def _taps(model, mel: torch.Tensor, fp16: bool) -> torch.Tensor:
-    return encoder_apply_taps(model.encoder, mel, model.dims.n_audio_head, "all_nopool",
+    return encoder_apply_taps(model.encoder, mel, model.audio_heads, "all_nopool",
                               model.compute_dtype(fp16), **_impls())
 
 

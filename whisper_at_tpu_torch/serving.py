@@ -19,6 +19,15 @@ A standard-library HTTP front end (`make_http_server`, `serve_http`,
 
 `http.server.ThreadingHTTPServer` handles connections; each handler thread
 waits on its request's future while the scheduler batches across them.
+
+With a mesh (`parallel.mesh.Mesh`) every rank constructs the service with
+the same arguments. Rank 0 owns the queue, the scheduler and the HTTP
+front end; before each batch it broadcasts the batch's audio and options,
+and every other rank makes the same `transcribe_many(mesh=)` call in its
+own follower thread (`parallel.inference.follow`). While idle, rank 0
+broadcasts a no-op every HEARTBEAT_S, so the followers' waits stay inside
+the groups' timeout; `close()` on rank 0 releases them, and `close()` on
+another rank returns once it has.
 """
 
 from __future__ import annotations
@@ -37,7 +46,72 @@ import torch
 
 from .audio import SAMPLE_RATE, decode_wav_pcm16, load_audio_pcm16, prefetch_audio
 from .ops.mel import HOP_LENGTH, N_FRAMES, N_SAMPLES, PrefetchedAudio
+from .parallel.inference import end, follow, heartbeat, lead
+from .parallel.mesh import as_mesh
 from .transcribe import DEFAULT_MAX_BATCH, _batch_bucket, _serve_prof, transcribe_many
+
+HEARTBEAT_S = 10.0  # rank 0 of a mesh leads a no-op this often while idle
+
+
+class MeshLink:
+    """A service's side of the SPMD protocol over `mesh` (None: no mesh).
+    Rank 0 leads each job under one lock, so the jobs of its threads
+    (scheduler, warm-up) reach the other ranks in the order it runs them;
+    every other rank runs `run(job)` in its follower thread."""
+
+    def __init__(self, mesh):
+        self.mesh = None if mesh is None else as_mesh(mesh)
+        self.lock = threading.Lock()
+        self.error = None
+
+    @property
+    def follower(self) -> bool:
+        return self.mesh is not None and self.mesh.rank != 0
+
+    def call(self, job: tuple, fn):
+        """fn(), after the other ranks have been sent `job`."""
+        if self.mesh is None:
+            return fn()
+        with self.lock:
+            self.mesh.bind_thread()
+            lead(self.mesh, job)
+            return fn()
+
+    def heartbeat(self) -> None:
+        with self.lock:
+            heartbeat(self.mesh)
+
+    def end(self) -> None:
+        if self.mesh is not None and not self.follower:
+            with self.lock:
+                self.mesh.bind_thread()
+                end(self.mesh)
+
+    def follow(self, run) -> None:
+        try:
+            follow(self.mesh, run)
+        except BaseException as exc:  # noqa: BLE001 - raised again by close()
+            self.error = exc
+
+    def raise_error(self) -> None:
+        if self.error is not None:
+            raise RuntimeError(f"mesh rank {self.mesh.rank}: its follower thread "
+                               f"failed") from self.error
+
+
+def portable_audio(audio):
+    """A prepared input as it travels to the other ranks: a PrefetchedAudio's
+    signal on the host, or the waveform."""
+    if isinstance(audio, PrefetchedAudio):
+        return ("prefetched", audio.ready().cpu(), audio.n_frames, audio.padding)
+    return ("waveform", np.asarray(audio))
+
+
+def local_audio(item, device):
+    """`portable_audio`'s item as this rank's input."""
+    if item[0] == "prefetched":
+        return PrefetchedAudio(item[1].to(device), item[2], item[3])
+    return item[1]
 
 
 def _canonical_options(options: dict) -> tuple:
@@ -114,19 +188,21 @@ class TranscriptionService:
         up to max_total_wait_s (default 10 x max_wait_s) from its first.
     prefetch: prepare each request's audio and start its copy to the
         device in the prep pool at submit time (results are the same off).
-    mesh: not ported yet (NotImplementedError).
+    mesh: a `parallel.mesh.Mesh`; construct the service on every rank with
+        the same arguments; only rank 0 takes requests (module docstring).
     default_options: decode options of every request, overridable per
         `submit`, e.g. language="en".
     """
 
     _CLOSED = object()
+    _IDLE = object()
 
     def __init__(self, model, *, max_batch: int = DEFAULT_MAX_BATCH,
                  max_wait_s: float = 0.05, max_total_wait_s: float = None,
                  prefetch: bool = True, prep_workers: int = 4, mesh=None,
                  **default_options):
-        if mesh is not None:
-            raise NotImplementedError("a device mesh is not ported yet")
+        self._link = MeshLink(mesh)
+        self.mesh = self._link.mesh
         if default_options.get("condition_on_previous_text"):
             raise ValueError("condition_on_previous_text=True serializes windows and "
                              "cannot ride the packed batch path; use transcribe() directly")
@@ -148,8 +224,12 @@ class TranscriptionService:
         self._latencies: deque = deque(maxlen=1024)
         self._prep_pool = ThreadPoolExecutor(max_workers=max(1, prep_workers),
                                              thread_name_prefix="wat-serve-prep")
-        self._thread = threading.Thread(target=self._scheduler, name="wat-serve-scheduler",
-                                        daemon=True)
+        if self._link.follower:
+            self._thread = threading.Thread(target=self._link.follow, args=(self._run_job,),
+                                            name="wat-serve-follower", daemon=True)
+        else:
+            self._thread = threading.Thread(target=self._scheduler,
+                                            name="wat-serve-scheduler", daemon=True)
         self._thread.start()
 
     # ------------------------------------------------------------------ #
@@ -159,6 +239,9 @@ class TranscriptionService:
     def submit(self, audio, **overrides) -> Future:
         """Queue one recording (waveform, WAV path or PrefetchedAudio);
         returns a Future of the `transcribe`-shaped dict."""
+        if self._link.follower:
+            raise RuntimeError(f"rank {self.mesh.rank} of the mesh takes no requests: "
+                               f"submit on rank 0")
         with self._cv:
             if self._closed:
                 raise RuntimeError("TranscriptionService is closed")
@@ -186,11 +269,15 @@ class TranscriptionService:
         (1, 2, 4, 8, 16, max_batch; the decode itself takes exactly its
         windows) or of `buckets`, under the service's options (`overrides`
         win). Bypasses
-        the scheduler, so the stats are untouched. Returns {k: seconds}."""
+        the scheduler, so the stats are untouched. Returns {k: seconds}.
+        On a mesh, rank 0's calls drive the other ranks, whose own warmup
+        returns {} at once."""
         if self.model.device.type == "cuda":
             from .ops import cuda
 
             cuda.build_all()
+        if self._link.follower:
+            return {}
         if buckets is None:
             buckets = sorted({_batch_bucket(n, self.max_batch)
                               for n in range(1, self.max_batch + 1)})
@@ -202,7 +289,7 @@ class TranscriptionService:
             clips = [(0.3 * np.sin(2 * np.pi * (220.0 + 5 * i) * t)).astype(np.float32)
                      for i in range(int(k))]
             t0 = time.monotonic()
-            transcribe_many(self.model, clips, max_batch=self.max_batch, **options)
+            self._many(clips, options)
             took[int(k)] = round(time.monotonic() - t0, 3)
         return took
 
@@ -220,7 +307,8 @@ class TranscriptionService:
 
     def close(self, wait: bool = True):
         """Stop the service: wait=True serves the backlog first, wait=False
-        cancels every request still queued."""
+        cancels every request still queued. On a mesh, rank 0 then releases
+        the other ranks; another rank returns once rank 0 has closed."""
         with self._cv:
             if self._closed and not self._thread.is_alive():
                 return
@@ -228,8 +316,10 @@ class TranscriptionService:
             self._drain = wait
             self._cv.notify_all()
         self._thread.join()
+        self._link.end()
         # on abort, drop the prep jobs nobody will read
         self._prep_pool.shutdown(wait=True, cancel_futures=not wait)
+        self._link.raise_error()
 
     def __enter__(self):
         return self
@@ -240,6 +330,20 @@ class TranscriptionService:
     # ------------------------------------------------------------------ #
     # scheduler
     # ------------------------------------------------------------------ #
+
+    def _many(self, audios, options: dict):
+        """`transcribe_many` of one batch; on a mesh, the other ranks are
+        sent the batch first and make the same call."""
+        job = ("many", [portable_audio(a) for a in audios] if self.mesh else None,
+               self.max_batch, options)
+        return self._link.call(job, lambda: transcribe_many(
+            self.model, audios, max_batch=self.max_batch, mesh=self.mesh, **options))
+
+    def _run_job(self, job) -> None:
+        """A follower's part of rank 0's batch."""
+        _, items, max_batch, options = job
+        transcribe_many(self.model, [local_audio(i, self.mesh.device) for i in items],
+                        max_batch=max_batch, mesh=self.mesh, **options)
 
     def _prep(self, audio):
         """A request's host work. Whatever makes this request invalid raises
@@ -285,7 +389,10 @@ class TranscriptionService:
             while not self._pending:
                 if self._closed:
                     return self._CLOSED
-                self._cv.wait()
+                if self.mesh is None:
+                    self._cv.wait()
+                elif not self._cv.wait(timeout=HEARTBEAT_S):
+                    return self._IDLE
             if self._closed and not self._drain:
                 while self._pending:
                     self._pending.popleft().future.cancel()
@@ -327,11 +434,16 @@ class TranscriptionService:
     def _scheduler(self):
         prof = _serve_prof
         last_dispatch_end = None
+        if self.mesh is not None:
+            self.mesh.bind_thread()
         while True:
             t_fill = time.perf_counter()
             taken = self._take_batch()
             if taken is self._CLOSED:
                 return
+            if taken is self._IDLE:
+                self._link.heartbeat()
+                continue
             batch, _ = taken
             if not batch:
                 continue
@@ -341,8 +453,7 @@ class TranscriptionService:
                 prof.add("sched-gap", time.perf_counter() - last_dispatch_end)
             t0 = time.monotonic()
             try:
-                results = transcribe_many(self.model, [r.audio for r in batch],
-                                          max_batch=self.max_batch, **batch[0].options)
+                results = self._many([r.audio for r in batch], batch[0].options)
             except Exception as exc:  # noqa: BLE001 - delivered to every request of the batch
                 with self._stats_lock:
                     self._stats["failed"] += len(batch)

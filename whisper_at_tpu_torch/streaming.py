@@ -40,7 +40,7 @@ from .segmentation import (
     parse_window,
     segment_record,
 )
-from .serving import _canonical_options, _scan_compatible, _settle
+from .serving import HEARTBEAT_S, MeshLink, _canonical_options, _scan_compatible, _settle
 from .timing import APPEND_PUNCTUATIONS, PREPEND_PUNCTUATIONS
 from .tokenizer import get_tokenizer
 from .transcribe import (
@@ -437,14 +437,22 @@ class StreamingService:
     >>> sess = service.open(language="en")      # one per client connection
     >>> segs = sess.feed(block)                 # from the client's thread
     >>> service.close()
+
+    With a mesh (`parallel.mesh.Mesh`), every rank constructs the service
+    with the same arguments; rank 0 opens the sessions and runs the
+    scheduler, and before each decode or detection batch it broadcasts the
+    batch's windows and options, for which every other rank makes the same
+    call in its follower thread (`serving.MeshLink`, as the
+    TranscriptionService does).
     """
 
     _CLOSED = object()
+    _IDLE = object()
 
     def __init__(self, model, *, max_batch: int = 24, max_wait_s: float = 0.02,
                  max_total_wait_s: float = None, mesh=None, **session_defaults):
-        if mesh is not None:
-            raise NotImplementedError("a device mesh is not ported yet")
+        self._link = MeshLink(mesh)
+        self.mesh = self._link.mesh
         self._session_defaults = dict(session_defaults)
         self.model = model
         self.max_batch = int(max_batch)
@@ -459,12 +467,19 @@ class StreamingService:
         self._stats = dict(sessions=0, windows=0, batches=0, max_batch_windows=0,
                            mel_batched_windows=0, tag_groups=0, detect_windows=0,
                            detect_batches=0)
-        self._thread = threading.Thread(target=self._scheduler, name="wat-stream-scheduler",
-                                        daemon=True)
+        if self._link.follower:
+            self._thread = threading.Thread(target=self._link.follow, args=(self._run_job,),
+                                            name="wat-stream-follower", daemon=True)
+        else:
+            self._thread = threading.Thread(target=self._scheduler,
+                                            name="wat-stream-scheduler", daemon=True)
         self._thread.start()
 
     def open(self, **session_options) -> StreamingTranscriber:
         """A session whose windows ride the shared batches."""
+        if self._link.follower:
+            raise RuntimeError(f"rank {self.mesh.rank} of the mesh opens no sessions: "
+                               f"open them on rank 0")
         session_options = {**self._session_defaults, **session_options}
         if session_options.get("condition_on_previous_text"):
             raise ValueError("condition_on_previous_text=True threads a per-stream prompt "
@@ -488,6 +503,8 @@ class StreamingService:
             from .ops import cuda
 
             cuda.build_all()
+        if self._link.follower:
+            return {"sessions": 0, "seconds": 0.0}
         t = np.arange(int(SAMPLE_RATE * seconds)) / SAMPLE_RATE
         waves = [(0.3 * np.sin(2 * np.pi * (220.0 + 10 * i) * t)).astype(np.float32)
                  for i in range(int(n))]
@@ -520,13 +537,17 @@ class StreamingService:
 
     def close(self):
         """Stop the scheduler. Batches under way finish; sessions whose
-        windows are still queued get a RuntimeError from feed()."""
+        windows are still queued get a RuntimeError from feed(). On a mesh,
+        rank 0 then releases the other ranks; another rank returns once
+        rank 0 has closed."""
         with self._cv:
             if self._closed and not self._thread.is_alive():
                 return
             self._closed = True
             self._cv.notify_all()
         self._thread.join()
+        self._link.end()
+        self._link.raise_error()
 
     def __enter__(self):
         return self
@@ -563,10 +584,24 @@ class StreamingService:
         detection and wait for its {language: probability}."""
         return self._enqueue(_DetectRequest(window, Future()))
 
+    def _run_job(self, job) -> None:
+        """A follower's part of rank 0's batch: the same decode or
+        detection over the windows it sent."""
+        with torch.no_grad():
+            windows = job[1].to(self.mesh.device)
+            if job[0] == "detect":
+                detect_language(self.model, windows)
+            else:
+                _, _, temperature, gate, options, max_batch = job
+                _decode_windows_batched(self.model, windows, temperature, gate, options,
+                                        max_batch, self.mesh)
+
     def _run_detect_batch(self, batch):
         try:
             with torch.no_grad():
-                _, probs = detect_language(self.model, torch.stack([r.window for r in batch]))
+                windows = torch.stack([r.window for r in batch])
+                _, probs = self._link.call(("detect", windows),
+                                           lambda: detect_language(self.model, windows))
         except Exception as exc:  # noqa: BLE001 - delivered to each session
             for r in batch:
                 _settle(r.future, exception=exc)
@@ -582,7 +617,10 @@ class StreamingService:
             while not self._pending:
                 if self._closed:
                     return self._CLOSED
-                self._cv.wait()
+                if self.mesh is None:
+                    self._cv.wait()
+                elif not self._cv.wait(timeout=HEARTBEAT_S):
+                    return self._IDLE
             if self._closed:
                 # fail queued windows rather than leave their sessions waiting
                 while self._pending:
@@ -645,10 +683,15 @@ class StreamingService:
         return tags, len(groups)
 
     def _scheduler(self):
+        if self.mesh is not None:
+            self.mesh.bind_thread()
         while True:
             batch = self._take_batch()
             if batch is self._CLOSED:
                 return
+            if batch is self._IDLE:
+                self._link.heartbeat()
+                continue
             head = batch[0]
             if isinstance(head, _DetectRequest):
                 self._run_detect_batch(batch)
@@ -658,9 +701,11 @@ class StreamingService:
                     with _stream_prof("sched-materialize"):
                         windows, n_mel_batched = self._materialize_windows(batch)
                     with _stream_prof("sched-decode"):
-                        results = _decode_windows_batched(
+                        job = ("decode", windows, head.temperature, head.gate, head.options,
+                               self.max_batch)
+                        results = self._link.call(job, lambda: _decode_windows_batched(
                             self.model, windows, head.temperature, head.gate, head.options,
-                            self.max_batch)
+                            self.max_batch, self.mesh))
                     with _stream_prof("sched-tags"):
                         tags, n_tag_groups = self._batched_tags(batch, results)
             except Exception as exc:  # noqa: BLE001 - delivered to each session

@@ -138,7 +138,7 @@ def find_alignment(model, tokenizer: Tokenizer, text_tokens: List[int], mel: tor
     elif audio_features.dim() == 2:
         audio_features = audio_features[None]
     logits, qk = decoder_forward_with_qk(model.decoder, tokens, audio_features,
-                                         model.alignment_heads, model.dims.n_text_head, dtype)
+                                         model.alignment_heads, model.text_heads, dtype)
     # the probabilities in float64 on the host, as the JAX package's solo path
     sampled = logits[0, sl:, :tokenizer.eot].double().cpu().numpy()
     shifted = sampled - sampled.max(axis=-1, keepdims=True)
@@ -191,7 +191,7 @@ def find_alignment_batched(model, tokenizer: Tokenizer, text_tokens_list: List[L
         audio_features, _ = model.embed_audio(mels[live], fp16=dtype == torch.bfloat16)
 
     logits, qk = decoder_forward_with_qk(model.decoder, toks, audio_features,
-                                         model.alignment_heads, model.dims.n_text_head, dtype)
+                                         model.alignment_heads, model.text_heads, dtype)
     text_probs = _token_probs_from_logits(logits, toks, sl, tokenizer.eot).cpu().numpy()
     del logits
 

@@ -12,6 +12,13 @@ other. Host control as in the JAX loop: timing meters, the NaN abort, the
 and the loss read one step late: step i's loss is copied to the host
 behind its step and read after step i+1 is launched, so the host never
 waits for the step in flight.
+
+`train(mesh=)` runs the sharded step (`steps.make_sharded_train_step`) in
+every rank of the mesh: each rank draws the same global batch from the same
+seeded loader and steps on its dp slice, so the JAX package's random
+streams are kept. Every rank validates. Checkpoints are gathered to whole
+tensors on every rank and written by rank 0 alone, in the single-device
+format: either kind of run resumes the other.
 """
 
 import os
@@ -30,9 +37,17 @@ from ..convert import (
     tltr_leaf_to_jax,
     tltr_to_jax_params,
 )
+from ..parallel.mesh import all_gather, as_mesh, shard_batch, split_rows, tltr_split_dim
 from ..utils import resolve_device
 from .stats import calculate_stats, d_prime, mean_auc, mean_average_precision
-from .steps import bce_with_logits_loss, ce_loss, make_eval_step, make_optimizer, make_train_step
+from .steps import (
+    bce_with_logits_loss,
+    ce_loss,
+    make_eval_step,
+    make_optimizer,
+    make_sharded_train_step,
+    make_train_step,
+)
 from .tltr import TLTR, count_parameters
 
 
@@ -122,21 +137,49 @@ def _adam_params(model: TLTR):
     return [(name, named[name]) for name in jax_leaf_order(named)]
 
 
-def _save_train_state(path: str, optimizer, model: TLTR, scheduler_scale: float, epoch: int):
+def _whole(name: str, t: torch.Tensor, mesh=None) -> torch.Tensor:
+    """A parameter (or its Adam moment) whole: gathered over tp along its
+    split axis under a mesh, else `t`."""
+    dim = tltr_split_dim(name, t.dim()) if mesh is not None else None
+    if dim is None:
+        return t
+    return torch.cat(all_gather(t.contiguous(), mesh, "tp"), dim=dim)
+
+
+def _save_train_state(path: str, optimizer, model: TLTR, scheduler_scale: float, epoch: int,
+                      mesh=None):
     """optax's Adam state as `jax.tree.leaves` orders it (its step count,
     then the first moments, then the second, in the JAX layouts), then the
-    scheduler scale and the epoch."""
+    scheduler scale and the epoch. Under a mesh every rank gathers the
+    moments whole and rank 0 writes."""
     params = _adam_params(model)
     states = [optimizer.state.get(p, {}) for _, p in params]
     count = int(states[0]["step"]) if "step" in states[0] else 0
     leaves = [np.asarray(count, np.int32)]
     for key in ("exp_avg", "exp_avg_sq"):
-        leaves += [tltr_leaf_to_jax(name, st[key] if key in st else torch.zeros_like(p))
+        leaves += [tltr_leaf_to_jax(name, _whole(name, st[key] if key in st
+                                                 else torch.zeros_like(p), mesh))
                    for (name, p), st in zip(params, states)]
+    if mesh is not None and mesh.rank != 0:
+        return
     arrays = {f"leaf_{i}": x for i, x in enumerate(leaves)}
     arrays["__scale__"] = np.asarray(scheduler_scale)
     arrays["__epoch__"] = np.asarray(epoch)
     np.savez(path, **arrays)
+
+
+def _shard_adam_state(full: dict, optimizer, model, mesh) -> None:
+    """Adam state of the whole head ({name: state}) as the state of this
+    rank's shards of `model`'s parameters."""
+    tp, index = mesh.size("tp"), mesh.coord("tp")
+    for name, p in model.named_parameters():
+        st = full.get(name)
+        if not st:
+            continue
+        dim = tltr_split_dim(name, p.dim())
+        part = (lambda t: t) if dim is None else (lambda t: split_rows(t, dim, tp, index))
+        optimizer.state[p] = {"step": st["step"], "exp_avg": part(st["exp_avg"]),
+                              "exp_avg_sq": part(st["exp_avg_sq"])}
 
 
 def _load_train_state(path: str, optimizer, model: TLTR):
@@ -237,16 +280,23 @@ def train(
 
     Epoch semantics mirror the reference: for 'as-full', each epoch breaks
     at 10% of the loader (traintest.py:136-139), so 30 epochs == 3 passes.
+
+    mesh: a ('dp', 'tp') `parallel.mesh.Mesh`; every rank calls train with
+    the same arguments and runs on the mesh's device (not `device`). The
+    batch (every train batch size a multiple of dp) splits over dp, the
+    head's blocks over tp; the returned model is this rank's shard.
     """
     if mesh is not None:
-        raise NotImplementedError("train(mesh=...) is not ported yet: ROADMAP module 18 "
-                                  "(parallelism on torch.distributed)")
-    dev = resolve_device(device)
+        mesh = as_mesh(mesh)
+        dev = mesh.device
+    else:
+        dev = resolve_device(device)
+    lead = mesh is None or mesh.rank == 0
+    log = print if lead else (lambda *args, **kwargs: None)
     model = model.to(dev)
     os.makedirs(os.path.join(exp_dir, "models"), exist_ok=True)
 
     optimizer = make_optimizer(model.parameters(), lr)
-    train_step = make_train_step(mode, optimizer, loss_type, pos_weight, compute_dtype)
     eval_step = make_eval_step(mode, compute_dtype)
 
     def loss_fn(logits, labels):
@@ -256,13 +306,13 @@ def train(
 
     if lr_adapt:
         scheduler = ReduceLROnPlateau(factor=0.5, patience=lr_patience)
-        print("Override to use adaptive learning rate scheduler.")
+        log("Override to use adaptive learning rate scheduler.")
     else:
         scheduler = MultiStepLR(lrscheduler_start, lrscheduler_step, lrscheduler_decay)
-        print("The learning rate scheduler starts at {:d} epoch with decay rate "
-              "of {:.3f} every {:d} epochs".format(lrscheduler_start, lrscheduler_decay,
-                                                   lrscheduler_step))
-    print("Total trainable parameter number is : {:.3f} million".format(
+        log("The learning rate scheduler starts at {:d} epoch with decay rate "
+            "of {:.3f} every {:d} epochs".format(lrscheduler_start, lrscheduler_decay,
+                                                 lrscheduler_step))
+    log("Total trainable parameter number is : {:.3f} million".format(
         count_parameters(model) / 1e6))
 
     loss_meter = AverageMeter()
@@ -289,7 +339,18 @@ def train(
             start_epoch = last + 1
             prev = np.loadtxt(os.path.join(exp_dir, "result.csv"), delimiter=",")
             result[: min(last, n_epochs)] = np.atleast_2d(prev)[: min(last, n_epochs)]
-            print(f"resuming from epoch {last}")
+            log(f"resuming from epoch {last}")
+
+    if mesh is not None:
+        # the whole head's Adam state (restored above, or empty) onto the shards
+        full_state = {name: optimizer.state.get(p) for name, p in model.named_parameters()}
+        train_step, model, optimizer = make_sharded_train_step(
+            mesh, mode, model, lr, loss_type, pos_weight, compute_dtype)
+        _shard_adam_state(full_state, optimizer, model, mesh)
+        prepare = lambda x: _to_device(shard_batch(mesh, x), dev)  # noqa: E731
+    else:
+        train_step = make_train_step(mode, optimizer, loss_type, pos_weight, compute_dtype)
+        prepare = lambda x: _to_device(x, dev)  # noqa: E731
 
     for epoch in range(start_epoch, n_epochs + 1):
         begin_time = time.time()
@@ -299,8 +360,7 @@ def train(
 
         for i, (feats, labels) in enumerate(train_loader):
             data_t = time.time() - end_time
-            loss = train_step(model, _to_device(feats, dev), _to_device(labels, dev),
-                              scheduler.scale)
+            loss = train_step(model, prepare(feats), prepare(labels), scheduler.scale)
             b = feats.shape[0]
             if pending is not None:
                 loss_meter.update(pending.value(), pending.n)
@@ -313,7 +373,7 @@ def train(
             per_sample_dnn_time.update((body_end - end_time - data_t) / b)
 
             if global_step % n_print_steps == 0 and global_step != 0:
-                print("Epoch: [{0}][{1}/{2}]\t"
+                log("Epoch: [{0}][{1}/{2}]\t"
                       "Per Sample Total Time {3:.5f}\t"
                       "Per Sample Data Time {4:.5f}\t"
                       "Per Sample DNN Time {5:.5f}\t"
@@ -322,7 +382,7 @@ def train(
                           per_sample_data_time.avg, per_sample_dnn_time.avg,
                           loss_meter.val), flush=True)
                 if np.isnan(loss_meter.avg):
-                    print("training diverged...")
+                    log("training diverged...")
                     return model
 
             end_time = time.time()
@@ -335,7 +395,7 @@ def train(
         if pending is not None:
             loss_meter.update(pending.value(), pending.n)
 
-        print("start validation")
+        log("start validation")
         valid_t0 = time.time()
         stats, valid_loss = validate(eval_step, model, val_loader, loss_fn)
         valid_s = time.time() - valid_t0
@@ -343,21 +403,22 @@ def train(
         mAUC = mean_auc(stats)
         acc = stats[0]["acc"]
 
-        print("mAP: {:.6f}".format(mAP) if metrics_name == "mAP"
-              else "acc: {:.6f}".format(acc))
-        print("AUC: {:.6f}".format(mAUC))
-        print("d_prime: {:.6f}".format(d_prime(mAUC)))
-        print("train_loss: {:.6f}".format(loss_meter.avg))
-        print("valid_loss: {:.6f}".format(valid_loss))
+        log("mAP: {:.6f}".format(mAP) if metrics_name == "mAP"
+            else "acc: {:.6f}".format(acc))
+        log("AUC: {:.6f}".format(mAUC))
+        log("d_prime: {:.6f}".format(d_prime(mAUC)))
+        log("train_loss: {:.6f}".format(loss_meter.avg))
+        log("valid_loss: {:.6f}".format(valid_loss))
 
         if n_class_sonyc is not None and n_class_sonyc > 527:
             sonyc_mAP = float(np.mean([s["AP"] for s in stats[527:n_class_sonyc]]))
             original_mAP = float(np.mean([s["AP"] for s in stats[:527]]))
-            print(f"Original AudioSet classes mAP: {original_mAP:.6f}")
-            print(f"SONYC classes mAP: {sonyc_mAP:.6f}")
+            log(f"Original AudioSet classes mAP: {original_mAP:.6f}")
+            log(f"SONYC classes mAP: {sonyc_mAP:.6f}")
 
         result[epoch - 1, :] = [acc, mAP, mAUC, lr * scheduler.scale]
-        np.savetxt(os.path.join(exp_dir, "result.csv"), result, delimiter=",")
+        if lead:
+            np.savetxt(os.path.join(exp_dir, "result.csv"), result, delimiter=",")
 
         if mAP > best_mAP:
             best_mAP = mAP
@@ -369,20 +430,23 @@ def train(
                 best_epoch = epoch
 
         if save_model:
-            save_params(os.path.join(exp_dir, "models", f"audio_model.{epoch}.npz"),
-                        tltr_to_jax_params(model.state_dict()))
+            state = {name: _whole(name, t, mesh) for name, t in model.state_dict().items()}
+            if lead:
+                save_params(os.path.join(exp_dir, "models", f"audio_model.{epoch}.npz"),
+                            tltr_to_jax_params(state))
             _save_train_state(os.path.join(exp_dir, "models", f"train_state.{epoch}.npz"),
-                              optimizer, model, scheduler.scale, epoch)
+                              optimizer, model, scheduler.scale, epoch, mesh)
 
         scheduler.step(mAP if metrics_name == "mAP" else acc)
 
-        with open(os.path.join(exp_dir, f"stats_{epoch}.pickle"), "wb") as handle:
-            pickle.dump(stats, handle, protocol=pickle.HIGHEST_PROTOCOL)
         progress.append([epoch, global_step, best_epoch, best_mAP, time.time() - start_time])
-        with open(os.path.join(exp_dir, "progress.pkl"), "wb") as f:
-            pickle.dump(progress, f)
+        if lead:
+            with open(os.path.join(exp_dir, f"stats_{epoch}.pickle"), "wb") as handle:
+                pickle.dump(stats, handle, protocol=pickle.HIGHEST_PROTOCOL)
+            with open(os.path.join(exp_dir, "progress.pkl"), "wb") as f:
+                pickle.dump(progress, f)
 
-        print("epoch {:d} training time: {:.3f}".format(epoch, time.time() - begin_time))
+        log("epoch {:d} training time: {:.3f}".format(epoch, time.time() - begin_time))
         if report is not None:
             report[epoch] = dict(loss=loss_meter.avg, valid_loss=valid_loss, mAP=mAP, mAUC=mAUC,
                                  per_sample_data_s=per_sample_data_time.avg,

@@ -16,6 +16,12 @@ Signatures follow the stateful module: `make_optimizer` takes the head's
 parameters, a step is `step(model, feats, labels, lr_scale) -> loss` (the
 model and the optimizer are updated in place), an eval step is
 `eval_step(model, feats) -> fp32 logits`.
+
+`make_sharded_train_step` is the JAX package's pjit step over a ('dp', 'tp')
+mesh in SPMD form: each rank steps on its dp slice of the batch, the
+gradients are averaged over dp (the whole batch's gradient, the slices being
+equal), and the head's blocks are split over tp by `parallel.mesh`'s TL-TR
+rules, Adam running on each rank's shard.
 """
 
 from typing import Callable, Optional
@@ -58,10 +64,13 @@ def _forward(model, feats: torch.Tensor, mode: str, compute_dtype) -> torch.Tens
 
 def make_train_step(mode: str, optimizer: torch.optim.Optimizer, loss_type: str = "BCE",
                     pos_weight: Optional[float] = None,
-                    compute_dtype=torch.bfloat16) -> Callable:
+                    compute_dtype=torch.bfloat16, mesh=None) -> Callable:
     """step(model, feats, labels, lr_scale) -> the loss (a device scalar,
     not synchronized); the model's parameters and `optimizer` advance one
-    step. The forward runs in compute_dtype, loss and optimizer in fp32."""
+    step. The forward runs in compute_dtype, loss and optimizer in fp32.
+    With a mesh, feats and labels are this rank's dp slice: the gradients
+    and the returned loss are averaged over dp."""
+    dp = mesh.size("dp") if mesh is not None else 1
     base_lrs = [g["lr"] for g in optimizer.param_groups]
 
     def loss_fn(model, feats, labels):
@@ -76,8 +85,17 @@ def make_train_step(mode: str, optimizer: torch.optim.Optimizer, loss_type: str 
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(model, feats, labels)
         loss.backward()
+        loss = loss.detach()
+        if dp > 1:
+            from ..parallel.mesh import all_reduce_
+
+            for group in optimizer.param_groups:
+                for p in group["params"]:
+                    if p.grad is not None:
+                        all_reduce_(p.grad, mesh, "dp").div_(dp)
+            loss = all_reduce_(loss.clone(), mesh, "dp") / dp
         optimizer.step()
-        return loss.detach()
+        return loss
 
     return train_step
 
@@ -92,7 +110,34 @@ def make_eval_step(mode: str, compute_dtype=torch.bfloat16) -> Callable:
     return eval_step
 
 
-def make_sharded_train_step(*args, **kwargs):
-    raise NotImplementedError(
-        "the sharded (mesh) train step is not ported yet: ROADMAP module 18 "
-        "(parallelism on torch.distributed)")
+def shard_tltr(model, mesh):
+    """Split a TL-TR head's transformer blocks over the mesh's tp axis in
+    place (`parallel.tensor.split_block`, the `parallel.mesh.tltr_split_dim`
+    rules); the classifier, layer weights, down projection and LNs stay
+    whole. Returns the model."""
+    from ..parallel.tensor import TP, split_block
+
+    tp = TP(mesh)
+    for name in ("time_tr", "layer_tr"):
+        block = getattr(model, name, None)
+        if block is not None:
+            split_block(block, tp)
+    return model
+
+
+def make_sharded_train_step(mesh, mode: str, model, lr: float, loss_type: str = "BCE",
+                            pos_weight: Optional[float] = None,
+                            compute_dtype=torch.bfloat16, weight_decay: float = 5e-7):
+    """The train step over a ('dp', 'tp') mesh. Every rank's head becomes
+    rank 0's, then its blocks split over tp (`shard_tltr`); Adam runs on the
+    rank's shard. Returns (step, the sharded model, its optimizer); step
+    takes this rank's dp slice (`parallel.mesh.shard_batch`) and returns
+    the loss of the whole batch."""
+    from ..parallel.mesh import as_mesh, replicate_params
+
+    mesh = as_mesh(mesh)
+    replicate_params(mesh, model)
+    shard_tltr(model, mesh)
+    optimizer = make_optimizer(model.parameters(), lr, weight_decay)
+    step = make_train_step(mode, optimizer, loss_type, pos_weight, compute_dtype, mesh=mesh)
+    return step, model, optimizer

@@ -21,12 +21,15 @@ Counterpart of `whisper_at_tpu/transcribe.py`:
                       each file's result equals `transcribe_batched` on it.
 
 Each takes a waveform, a WAV path or a `PrefetchedAudio`, and attaches word
-timestamps on request (`timing.py`). Not ported yet, and refused with
-NotImplementedError: a device mesh.
+timestamps on request (`timing.py`). `transcribe_batched` and
+`transcribe_many` take a `parallel.mesh.Mesh`: every rank calls them with the
+same audio, each dp rank decodes its share of the windows, and every rank
+returns the whole result (`parallel/inference.py`).
 """
 
 import time
 import warnings
+from dataclasses import replace
 from typing import List, Optional, Tuple, Union
 
 import numpy as np
@@ -44,6 +47,7 @@ from .audio import (
     prefetch_audio,
 )
 from .decoding import DecodingOptions, DecodingResult, DecodingTask, decode, detect_language
+from .parallel.inference import dp_share, gather_results
 from .languages import LANGUAGES
 from .ops.mel import WINDOW_SLACK, mel_windows_many
 from .segmentation import (
@@ -134,26 +138,49 @@ def _batch_bucket(n: int, max_batch: int) -> int:
 
 
 def _decode_windows_batched(model, windows: torch.Tensor, temperature, gate: QualityGate,
-                            decode_options: dict, max_batch: int) -> List[DecodingResult]:
+                            decode_options: dict, max_batch: int, mesh=None,
+                            keep_features: bool = True) -> List[DecodingResult]:
     """Decode every window in chunks of max_batch; each rung of the
-    temperature ladder re-decodes only the windows the gate rejected."""
+    temperature ladder re-decodes only the windows the gate rejected. With
+    a mesh, each dp rank decodes its share of a rung's windows in chunks of
+    max_batch / dp and every rank gets every result; keep_features=False
+    drops the encoder output from them (only word timing reads it)."""
     n_windows = windows.shape[0]
     results: List[Optional[DecodingResult]] = [None] * n_windows
     pending = list(range(n_windows))
+    per = max_batch if mesh is None else max(1, max_batch // mesh.size("dp"))
     for t, kwargs in temperature_schedule(temperature, decode_options):
         if not pending:
             break
         task = DecodingTask(model, DecodingOptions(**kwargs, temperature=t))
-        for lo in range(0, len(pending), max_batch):
+        mine = pending if mesh is None else dp_share(pending, mesh)
+        decoded = []
+        for lo in range(0, len(mine), per):
             # exactly the chunk's windows: the JAX package pads a chunk with
             # copies of its last row up to `_batch_bucket` to bound XLA
             # compiles, which an eager port does not need
-            chunk = pending[lo:lo + max_batch]
-            batch = windows[torch.tensor(chunk, device=windows.device)]
-            for w, r in zip(chunk, task.run(batch)):
-                results[w] = r
+            chunk = mine[lo:lo + per]
+            decoded += task.run(windows[torch.tensor(chunk, device=windows.device)])
+        if mesh is not None:
+            if not keep_features:
+                decoded = [replace(r, audio_features=None) for r in decoded]
+            decoded = gather_results(decoded, mesh)
+        for w, r in zip(pending, decoded):
+            results[w] = r
         pending = [w for w in pending if gate.needs_fallback(results[w])]
     return results
+
+
+def _on_mesh(model, mesh):
+    """The mesh, checked, with the model placed on it (None: no mesh)."""
+    if mesh is None:
+        return None
+    from .parallel.inference import place_model_on_mesh
+    from .parallel.mesh import as_mesh
+
+    mesh = as_mesh(mesh)
+    place_model_on_mesh(model, mesh)
+    return mesh
 
 
 def _stitch_tags_dispatch(model, entries, at_time_res: float, max_batch: int):
@@ -251,10 +278,11 @@ def transcribe_batched(
     """Transcribe and tag a recording (WAV path, int16 PCM or float32 at
     16 kHz) on the model's device. Returns {"text", "segments", "language",
     "at_time_res", "audio_tag" [n_cells, 527]}; with word_timestamps every
-    segment also has "words" (word, start, end, probability)."""
-    if mesh is not None:
-        raise NotImplementedError("a device mesh is not ported yet")
+    segment also has "words" (word, start, end, probability). With `mesh`
+    (a `parallel.mesh.Mesh`), every rank calls this with the same audio and
+    gets the same result; the dp ranks split the windows."""
     _reject_conditioning(decode_options)
+    mesh = _on_mesh(model, mesh)
     with torch.no_grad():
         mel = log_mel_spectrogram(audio, padding=N_SAMPLES, device=model.device)
         gate = QualityGate(compression_ratio_threshold, logprob_threshold,
@@ -274,7 +302,7 @@ def transcribe_batched(
             decode_options["prompt"] = tokenizer.encode(" " + initial_prompt.strip())
 
         results = _decode_windows_batched(model, windows, temperature, gate,
-                                          decode_options, max_batch)
+                                          decode_options, max_batch, mesh, word_timestamps)
         commit_tags = _stitch_tags_dispatch(
             model, [(grid, w * N_FRAMES, r.audio_features_for_at)
                     for w, r in enumerate(results)], at_time_res, max_batch)
@@ -501,10 +529,10 @@ def transcribe_many(
     language packed into `transcribe_batched`'s decode, one tag pass over
     every window, and the per-file assembly. Windows decode independently,
     so each result equals `transcribe_batched` on that file. Returns one
-    `transcribe_batched`-shaped dict per input, in order."""
-    if mesh is not None:
-        raise NotImplementedError("a device mesh is not ported yet")
+    `transcribe_batched`-shaped dict per input, in order. With `mesh`, as
+    `transcribe_batched`: every rank the same inputs and the same results."""
     _reject_conditioning(decode_options)
+    mesh = _on_mesh(model, mesh)
     prof = _serve_prof
     gate = QualityGate(compression_ratio_threshold, logprob_threshold, no_speech_threshold)
     input_stride, time_precision = _geometry(model)
@@ -552,7 +580,7 @@ def transcribe_many(
                 continue
             packed = torch.cat([files[i]["windows"] for i in live])
             decoded = _decode_windows_batched(model, packed, temperature, gate, opts,
-                                              max_batch)
+                                              max_batch, mesh, word_timestamps)
             pos = 0
             for i in live:
                 n = files[i]["windows"].shape[0]
