@@ -92,6 +92,24 @@ before and read just after, and checks its output:
     measured rounding noise, encoder, taps and tags within 2^-5 of the
     reference's largest magnitude, rates labelled two ranks sharing one
     card;
+(16) the research paths (`research_check`): (a) the ESC-50 probe:
+    `examples/esc50_probe_torch.make_clips`' 40 clips of 5 s through
+    `extract_features(n_frames=500)` pooled over time ([40, 32, 1280]; K1
+    and K2 32 times a clip, never K3 or K4), then `layer_wise_probe` at
+    1000 epochs in float64 on the card and on the CPU, the fold accuracies
+    and epoch counts equal, the largest coefficient difference printed
+    beside the CPU tests' 1e-9; (b) `generate_noisy_set` over
+    `examples/noise_robustness_torch.make_corpus`' 3 utterances x 2 noise
+    classes x SNRs -10 / 0 / 10 (18 files), `transcribe_noisy_set` at its
+    defaults (K1, K2; the default decode runs on the plain cross K/V, never
+    K3 or K4), the WER a SNR and the class matrix; (c) `evaluate_audioset`
+    over 4 clips of 10 s with a 527-row label csv, the gates off and every
+    window decoded in full at T = 0, each prediction row equal to the
+    clip's own `transcribe`, mAP again from the saved arrays. (b) alone
+    gives the random decoder an end-of-text preference (`eot_preference`,
+    undone after), so that each decode of its ladder ends after its first
+    timestamp, as a trained decoder ends a window with nothing to say (the
+    cut is printed);
 (9) the streaming probe: `tools/probe_dma_torch.py`'s `probe` at the JAX
     probe's defaults (512 MiB int8 in 1 MiB chunks, the same numpy draw):
     P1 and P2 (cp.async and TMA rings at depths 2, 4, 8), each bitwise
@@ -1984,11 +2002,10 @@ TRAIN_STEP_ITERS = 10
 N_CLASSES = 527
 
 
-def write_training_set(root: str) -> tuple:
-    """TRAIN_CLIPS int16 WAVs of TRAIN_CLIP_S s (`synth_audio`, seeds 0 ..
-    TRAIN_CLIPS - 1), a 527-row label CSV (display names from the JAX
-    package's asset, read by path; mids /m/{i}) and a data JSON with 1-3
-    labels a clip from default_rng(0). Returns (data json, label csv)."""
+def write_label_csv(root: str) -> str:
+    """A 527-row `index,mid,display_name` csv in `root`: made-up mids /m/{i}
+    (the repository holds no AudioSet csv) and the English display names of
+    the JAX package's asset, read by path. Returns its path."""
     import csv
 
     assets = os.path.join(os.path.dirname(os.path.abspath(__file__)), "whisper_at_tpu",
@@ -2001,6 +2018,15 @@ def write_training_set(root: str) -> tuple:
         writer.writerow(["index", "mid", "display_name"])
         for i, name in enumerate(names[:N_CLASSES]):
             writer.writerow([i, f"/m/{i}", name])
+    return label_csv
+
+
+def write_training_set(root: str) -> tuple:
+    """TRAIN_CLIPS int16 WAVs of TRAIN_CLIP_S s (`synth_audio`, seeds 0 ..
+    TRAIN_CLIPS - 1), a 527-row label CSV (display names from the JAX
+    package's asset, read by path; mids /m/{i}) and a data JSON with 1-3
+    labels a clip from default_rng(0). Returns (data json, label csv)."""
+    label_csv = write_label_csv(root)
     rng = np.random.default_rng(0)
     data = []
     for i in range(TRAIN_CLIPS):
@@ -3080,6 +3106,286 @@ def hold_mesh_ranks(card: str, model, ranks: list, refs: dict, setting: str) -> 
         raise AssertionError("; ".join(failures))
 
 
+# ---- (16) the research paths ----------------------------------------------- #
+# (a) examples/esc50_probe_torch.py's 40 clips of 5 s (5 classes, 4 folds):
+# all-layer features at n_frames 500 (T = 250 encoder positions) pooled over
+# time, then the layer-wise probe at the example's 1000 epochs on the card and
+# on the CPU; (b) examples/noise_robustness_torch.py's corpus (3 utterances of
+# 3 s, 2 noise classes) at 3 SNRs through the sequential transcribe at its
+# defaults; (c) the AudioSet evaluation over 4 clips of 10 s, each window
+# decoded in full (224 tokens at ~70 ms a step on random weights), twice
+PROBE_CLIPS = 40
+PROBE_FRAMES = 500
+PROBE_MAX_ITER = 1000
+PROBE_TOL = 1e-9  # the probe's float64 coefficients against scikit-learn's (CPU tests)
+NOISE_UTTS = 3
+NOISE_SNRS = (-10, 0, 10)
+NOISE_CLASSES = 50  # the class-wise scorer's columns (ESC-50)
+AS_CLIPS = 4
+AS_CLIP_S = 10
+# the random decoder's end-of-text preference in (b): its final layer
+# norm's bias moved EOT_BIAS along a seeded unit direction, the EOT embedding
+# row EOT_ROW times it, so that EOT's logit leads every other by ~50
+EOT_BIAS = 10.0
+EOT_ROW = 5.0
+
+
+def example_module(name: str):
+    """examples/<name>.py of this checkout as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", name + ".py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@contextlib.contextmanager
+def eot_preference(model):
+    """Within the block, the random decoder ends every decode at once, as a
+    trained decoder ends a window with nothing to say: each decode samples
+    its forced first timestamp, then EOT. A random decoder otherwise samples
+    all 224 tokens of every rung of the temperature ladder (~70 ms a step
+    at one audio row: minutes a file). The two edited tensors are restored
+    on exit."""
+    from whisper_at_tpu_torch.tokenizer import get_tokenizer
+
+    eot = get_tokenizer(model.is_multilingual).eot
+    dec = model.decoder
+    gen = torch.Generator(device=model.device)
+    gen.manual_seed(SEED)
+    e = torch.randn(model.dims.n_text_state, generator=gen, device=model.device)
+    e = e / e.norm()
+    bias, row = dec.ln.bias.detach().clone(), dec.token_embedding.weight[eot].detach().clone()
+    with torch.no_grad():
+        dec.ln.bias += (EOT_BIAS * e).to(bias.dtype)
+        dec.token_embedding.weight[eot] = (EOT_ROW * e).to(row.dtype)
+    model._decode_params = {}
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            dec.ln.bias.copy_(bias)
+            dec.token_embedding.weight[eot] = row
+        model._decode_params = {}
+
+
+@contextlib.contextmanager
+def decodes_seen():
+    """(temperature, tokens sampled) of every decode the sequential
+    transcribe runs in the block (a list, filled as it runs)."""
+    module = sys.modules["whisper_at_tpu_torch.transcribe"]
+    seen, decode = [], module.decode
+
+    def keeping(model, mel, opts):
+        result = decode(model, mel, opts)
+        seen.append((opts.temperature, len(result.tokens)))
+        return result
+
+    module.decode = keeping
+    try:
+        yield seen
+    finally:
+        module.decode = decode
+
+
+def layer_probe_check(card: str, model, root: str) -> dict:
+    """(16a) The ESC-50 probe: each clip through `extract_features(n_frames
+    =500)` and pooled over time, K1 and K2 once a layer a clip, never K3 or
+    K4; then `layer_wise_probe` in float64 on the card and on the CPU, every
+    layer's fold accuracies equal; each fold's fits again on both, epoch
+    counts equal, coefficients and epoch losses within PROBE_TOL."""
+    from whisper_at_tpu_torch.research import feature_extract as fx
+    from whisper_at_tpu_torch.research import layer_probe
+
+    paths, labels, folds = example_module("esc50_probe_torch").make_clips(
+        os.path.join(root, "esc50"), n=PROBE_CLIPS)
+    n_layer = model.dims.n_audio_layer
+
+    def extract():
+        return np.stack([fx.extract_features(model, p, n_frames=PROBE_FRAMES).mean(axis=1)
+                         for p in paths])
+
+    with Recorder() as rec:
+        feats, extract_s, counts = run_counted(extract, ("K1", "K2"), ("K3", "K4"))
+    k1, k2 = kernels_of(("K1", "K2"))
+    if counts[k1] != PROBE_CLIPS * n_layer or counts[k2] != PROBE_CLIPS * n_layer:
+        raise AssertionError(f"the probe's extraction launched K1 {counts[k1]} and K2 "
+                             f"{counts[k2]} times, not {PROBE_CLIPS * n_layer}")
+    if feats.shape != (PROBE_CLIPS, n_layer, D) or not np.isfinite(feats).all():
+        raise AssertionError(f"probe features {feats.shape}, or not finite")
+    hold_path_inputs(card, "research probe extraction", rec.inputs)
+    del rec
+
+    feats64 = feats.astype(np.float64)
+    seconds, results = {}, {}
+    for device in ("cuda", "cpu"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results[device] = layer_probe.layer_wise_probe(feats64, labels, folds, PROBE_MAX_ITER,
+                                                       device=device)
+        torch.cuda.synchronize()
+        seconds[device] = time.perf_counter() - t0
+    on_card, card_s, cpu_s = results["cuda"], seconds["cuda"], seconds["cpu"]
+    if [r["fold_accuracies"] for r in on_card] != [r["fold_accuracies"] for r in results["cpu"]]:
+        raise AssertionError("the probe's fold accuracies differ between the card and the CPU")
+    # each fold's fits again, on the card and on the CPU: equal epoch counts,
+    # coefficients and loss curves within the CPU tests' tolerance
+    epochs, coef_err, loss_err = [], 0.0, 0.0
+    for train_idx, _ in layer_probe._fold_defs(len(labels), folds):
+        a, b = (layer_probe.fit_linear_probe(feats64[train_idx], labels[train_idx],
+                                             PROBE_MAX_ITER, device) for device in ("cuda", "cpu"))
+        if not np.array_equal(a.n_iter, b.n_iter):
+            raise AssertionError(f"the probe's epoch counts differ between the card "
+                                 f"({a.n_iter}) and the CPU ({b.n_iter})")
+        epochs.append(a.n_iter)
+        coef_err = max(coef_err, float((a.coefs.cpu() - b.coefs).abs().max()),
+                       float((a.intercepts.cpu() - b.intercepts).abs().max()))
+        loss_err = max(loss_err, max(float(np.abs(np.subtract(ca, cb)).max())
+                                     for ca, cb in zip(a.loss_curves, b.loss_curves)))
+    if coef_err > PROBE_TOL or loss_err > PROBE_TOL:
+        raise AssertionError(f"the probe's card and CPU fits differ by {coef_err:.3e} in "
+                             f"coefficients and {loss_err:.3e} in losses (tolerance {PROBE_TOL})")
+    accs = [r["accuracy"] for r in on_card]
+    best = int(np.argmax(accs))
+    print(f"research (a) ESC-50 probe {SIZE}: {PROBE_CLIPS} clips of 5 s, n_frames "
+          f"{PROBE_FRAMES} (T = {PROBE_FRAMES // 2}), features {list(feats.shape)} in "
+          f"{extract_s:.3f} s = {PROBE_CLIPS / extract_s:.2f} clips/s, launches K1 "
+          f"{counts[k1]}, K2 {counts[k2]}; layer_wise_probe (float64, max_iter "
+          f"{PROBE_MAX_ITER}, {len(epochs)} folds): card {card_s:.3f} s, CPU "
+          f"{cpu_s:.3f} s; fold accuracies and epoch counts equal (epochs a fold, fewest-"
+          f"most over the layers: {[f'{e.min()}-{e.max()}' for e in epochs]}); largest "
+          f"difference in coefficients {coef_err:.3e} and in epoch losses {loss_err:.3e} "
+          f"(tolerance {PROBE_TOL}, the CPU tests'); "
+          f"accuracy layer 0 {accs[0]:.3f}, best layer {best} {accs[best]:.3f}, last "
+          f"{accs[-1]:.3f} [{card}]", flush=True)
+    return dict(clips_s=PROBE_CLIPS / extract_s, card_s=card_s, cpu_s=cpu_s, counts=counts)
+
+
+def noise_check(card: str, model, root: str) -> dict:
+    """(16b) The noise-robustness set: 3 utterances x 2 noise classes x 3
+    SNRs mixed by `generate_noisy_set` (18 files), `transcribe_noisy_set` at
+    its defaults (the sequential transcribe, the temperature ladder, the
+    gates on; bf16 on the plain cross K/V, so K1 and K2, never K3 or K4);
+    18 transcripts written and none by a second call; one finite WER a SNR;
+    the class matrix [3, 50] filled in exactly the two classes' columns.
+    The files are not cut; each decode is, to its first timestamp and EOT
+    (`eot_preference`): every file climbs the whole ladder, six rungs of up
+    to 224 tokens at ~70 ms a step on random weights."""
+    from whisper_at_tpu_torch.research import noisy_speech, wer
+
+    speech, noise_by_class, truth_dir = example_module("noise_robustness_torch").make_corpus(
+        os.path.join(root, "noise"), n_utts=NOISE_UTTS)
+    mixed_dir, text_dir = os.path.join(root, "noise", "mixed"), os.path.join(root, "noise", "hyp")
+    mixed = noisy_speech.generate_noisy_set(speech, noise_by_class, mixed_dir,
+                                            snr_levels=NOISE_SNRS, n_utterances=NOISE_UTTS)
+    n_files = NOISE_UTTS * len(noise_by_class) * len(NOISE_SNRS)
+    if len(mixed) != n_files:
+        raise AssertionError(f"{len(mixed)} mixtures, not {n_files}")
+    with eot_preference(model), decodes_seen() as decodes, Recorder() as rec:
+        written, seconds, counts = run_counted(
+            lambda: noisy_speech.transcribe_noisy_set(model, mixed_dir, text_dir),
+            ("K1", "K2"), ("K3", "K4"))
+        again = noisy_speech.transcribe_noisy_set(model, mixed_dir, text_dir)
+    if len(written) != n_files or again:
+        raise AssertionError(f"{len(written)} transcripts written, then {len(again)} more")
+    by_snr = wer.eval_noise_wer(text_dir, truth_dir, os.path.join(root, "noise", "wer.csv"),
+                                snr_levels=NOISE_SNRS)
+    if sorted(by_snr) != sorted(NOISE_SNRS) or not np.isfinite(list(by_snr.values())).all():
+        raise AssertionError(f"WER by SNR {by_snr}")
+    cla = wer.eval_noise_wer_classwise(text_dir, truth_dir,
+                                       os.path.join(root, "noise", "wer_cla.csv"),
+                                       n_classes=NOISE_CLASSES, snr_levels=NOISE_SNRS)
+    filled = sorted(np.flatnonzero(np.isfinite(cla).any(axis=0)).tolist())
+    if cla.shape != (len(NOISE_SNRS), NOISE_CLASSES) or filled != sorted(noise_by_class) \
+            or not np.isfinite(cla[:, filled]).all():
+        raise AssertionError(f"class-wise WER {cla.shape}, columns filled {filled}")
+    hold_path_inputs(card, "research noise set", rec.inputs)
+    del rec
+    k1, k2 = kernels_of(("K1", "K2"))
+    print(f"research (b) noise-robustness set {SIZE}: {n_files} files (3 utterances x "
+          f"{len(noise_by_class)} classes x SNRs {list(NOISE_SNRS)}) in {seconds:.3f} s = "
+          f"{seconds / n_files:.3f} s a file, {len(decodes)} decodes, temperatures reached "
+          f"{sorted({t for t, _ in decodes})}; CUT: every decode is its first timestamp and EOT (the "
+          f"decoder's EOT preference), so these seconds time the encoder and 2-token "
+          f"decodes, not full windows, and every transcript is empty; WER by SNR "
+          f"{ {k: round(v, 4) for k, v in by_snr.items()} }; class-wise [3, 50] filled in "
+          f"columns {filled}; launches K1 {counts[k1]}, K2 {counts[k2]}; a second call wrote "
+          f"0 files [{card}]", flush=True)
+    return dict(file_s=seconds / n_files, counts=counts)
+
+
+def audioset_check(card: str, model, root: str) -> dict:
+    """(16c) `evaluate_audioset` over AS_CLIPS WAVs of AS_CLIP_S s with an
+    eval json (1-3 labels a clip) and the 527-row label csv: the sequential
+    transcribe with the gates off, the random decoder as it is, so every
+    window decodes in full at T = 0 (K1, K2); predictions [AS_CLIPS, 527],
+    each row the first tag window of `transcribe` called directly on its
+    clip, and `compute_map_from_saved` returns the same mAP. The lines of
+    the 527 - 3 classes without a positive clip ("class k no true sample")
+    are `train.stats.calculate_stats`' own."""
+    from whisper_at_tpu_torch.research import as_eval
+
+    as_root = os.path.join(root, "audioset")
+    os.makedirs(as_root)
+    label_csv = write_label_csv(as_root)
+    rng = np.random.default_rng(1)
+    data = []
+    for i in range(AS_CLIPS):
+        path = os.path.join(as_root, f"eval{i}.wav")
+        with open(path, "wb") as f:
+            f.write(wav_body(synth_audio(AS_CLIP_S, SEED + 50 + i)))
+        labels = rng.choice(N_CLASSES, size=int(rng.integers(1, 4)), replace=False)
+        data.append({"wav": path, "labels": ",".join(f"/m/{k}" for k in labels)})
+    eval_json = os.path.join(as_root, "eval.json")
+    with open(eval_json, "w") as f:
+        json.dump({"data": data}, f)
+    out_dir = os.path.join(as_root, "out")
+    with decodes_seen() as decodes:
+        res, seconds, counts = run_counted(
+            lambda: as_eval.evaluate_audioset(model, eval_json, label_csv, out_dir,
+                                              tag="smoke"),
+            ("K1", "K2"), ("K3", "K4"))
+    if {t for t, _ in decodes} != {0.0}:
+        raise AssertionError(f"the gates off, a decode ran at another temperature: {decodes}")
+    preds = np.load(os.path.join(out_dir, "smoke_pred.npy"))
+    if preds.shape != (AS_CLIPS, N_CLASSES) or not np.isfinite(preds).all():
+        raise AssertionError(f"AudioSet predictions {preds.shape}, or not finite")
+    worst = 0.0
+    for row, entry in zip(preds, data):
+        direct = model.transcribe(entry["wav"], at_time_res=10, logprob_threshold=None,
+                                  compression_ratio_threshold=None, verbose=None)
+        worst = max(worst, float(np.abs(row - np.asarray(direct["audio_tag"])[0]).max()))
+    if worst != 0.0:
+        raise AssertionError(f"a saved prediction differs from its direct transcribe by {worst}")
+    again = as_eval.compute_map_from_saved(out_dir, ["smoke"])
+    if not np.isfinite(res["mAP"]) or again != {"smoke": res["mAP"]}:
+        raise AssertionError(f"mAP {res['mAP']}, from the saved arrays {again}")
+    k1, k2 = kernels_of(("K1", "K2"))
+    print(f"research (c) AudioSet evaluation {SIZE}: {AS_CLIPS} clips of {AS_CLIP_S} s in "
+          f"{seconds:.3f} s = {seconds / AS_CLIPS:.3f} s a clip, predictions "
+          f"{list(preds.shape)} equal to each clip's direct transcribe, mAP {res['mAP']:.4f} "
+          f"(the same from the saved arrays); {len(decodes)} windows decoded in full at T = 0, "
+          f"tokens sampled a window {[n for _, n in decodes]}; launches K1 {counts[k1]}, K2 {counts[k2]} [{card}]", flush=True)
+    return dict(clip_s=seconds / AS_CLIPS, counts=counts)
+
+
+def research_check(card: str, model) -> dict:
+    """(16) The research paths at large-v1 full width, in a temporary
+    directory: the ESC-50 probe, the noise-robustness set and the AudioSet
+    evaluation, each counted on its own."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_research_") as root:
+        out = dict(probe=layer_probe_check(card, model, root),
+                   noise=noise_check(card, model, root),
+                   audioset=audioset_check(card, model, root))
+    print(f"research phase: {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card",
@@ -3133,6 +3439,7 @@ def main() -> int:
     cli_check(card, model)
     spec_check(card, model)
     mesh_counts = mesh_check(card, model)
+    research_check(card, model)
     probe_rows, probe_counts = probe_check(card)
     rows.update(probe_rows)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to here [{card}]",

@@ -562,3 +562,155 @@ def test_utils_match_jax():
     assert utils.exact_div(3000, 1500) == 2
     with pytest.raises(ValueError):
         utils.exact_div(3001, 1500)
+
+
+# the public names of the JAX package that the port has on purpose not: a
+# closed list, (module, name) -> why; a name dropped from the port later, or
+# one the JAX package gains, fails `test_public_names_match_jax`
+NOT_PORTED = {
+    ("audio", "log_mel_spectrogram_jax"):
+        "the JAX device mel; the port's log_mel_spectrogram runs on the tensor's device",
+    ("streaming", "log_mel_spectrogram_jax"): "the same JAX device mel, imported there",
+    ("ops", "log_mel_spectrogram_jax"): "the same JAX device mel, exported there",
+    ("checkpoint", "convert_torch_state_dict"):
+        "reference state dict -> JAX tree; the port's parameters are that state dict",
+    ("checkpoint", "export_torch_state_dict"):
+        "JAX tree -> reference state dict; the port's model.state_dict() is it",
+    ("checkpoint", "convert_head_state_dict"):
+        "head state dict -> JAX tree; load_model merges a head file as it is "
+        "(rename_head_state_dict)",
+    ("checkpoint", "load_torch_checkpoint"):
+        "a reference .pt into JAX trees; the port's load_model reads it into the model",
+    ("checkpoint", "save_params_orbax"): "orbax, JAX's checkpoint library; the port has none",
+    ("checkpoint", "load_params_orbax"): "orbax, JAX's checkpoint library; the port has none",
+    ("decoding", "cross_kv_payload"):
+        "unwraps the JAX cross K/V pytree; the port's CrossKV is one object",
+    ("utils", "honor_jax_platforms_env"):
+        "sets JAX's platform from JAX_PLATFORMS; the port takes device= instead",
+}
+PAIRED_MODULES = ["", "audio", "checkpoint", "decoding", "transcribe", "timing", "streaming",
+                  "serving", "utils", "ops", "models", "train", "parallel", "research"]
+# the research modules, each compared on the names it defines itself
+RESEARCH_MODULES = ["research.wer", "research.noisy_speech", "research.as_eval",
+                    "research.layer_probe", "research.plots", "research.baselines",
+                    "research.feature_extract"]
+
+
+def _public_names(module, package: str, own: bool = False) -> set:
+    """Names a module offers: no leading underscore, no submodule, and
+    defined in `package` (with `own`, in the module itself), or a value
+    with no defining module (a constant)."""
+    import types
+
+    names = set()
+    for name in dir(module):
+        value = getattr(module, name)
+        if name.startswith("_") or isinstance(value, types.ModuleType):
+            continue
+        origin = getattr(value, "__module__", None)
+        if origin is None or (origin == module.__name__ if own
+                              else origin.split(".")[0] == package):
+            names.add(name)
+    return names
+
+
+def test_public_names_match_jax():
+    """Every public name of each JAX module is in its port, or in
+    NOT_PORTED with its reason; every NOT_PORTED entry is still missing."""
+    import importlib
+
+    missing = set()
+    for sub in PAIRED_MODULES + RESEARCH_MODULES:
+        own = sub in RESEARCH_MODULES
+        suffix = "." + sub if sub else ""
+        jax_mod = importlib.import_module("whisper_at_tpu" + suffix)
+        port_mod = importlib.import_module("whisper_at_tpu_torch" + suffix)
+        missing |= {(sub, n) for n in _public_names(jax_mod, "whisper_at_tpu", own)
+                    - _public_names(port_mod, "whisper_at_tpu_torch", own)}
+    assert missing == set(NOT_PORTED), (sorted(missing - set(NOT_PORTED)),
+                                        sorted(set(NOT_PORTED) - missing))
+    assert all(reason for reason in NOT_PORTED.values())
+
+
+def test_repaired_names_work():
+    """`utils` re-exports the writers, `checkpoint.rename_head_state_dict`
+    and `audio.exact_div` are the JAX package's, `timing.dtw` finds its
+    path, `ops.mel_filters` and `transcribe.cli` are there."""
+    from whisper_at_tpu.checkpoint import rename_head_state_dict as jax_rename
+    from whisper_at_tpu.ops.dtw import dtw as jax_dtw
+    from whisper_at_tpu_torch import audio, checkpoint, ops, timing
+    from whisper_at_tpu_torch.utils import get_writer, writers
+
+    assert get_writer is writers.get_writer
+    sd = {"module.mlp.w": 1, "at_model.x": 2, "other": 3}
+    assert checkpoint.rename_head_state_dict(sd) == jax_rename(sd)
+    assert audio.exact_div(3000, 1500) == 2
+    x = np.random.default_rng(0).standard_normal((9, 31)).astype(np.float32)
+    np.testing.assert_array_equal(timing.dtw(x), jax_dtw(x.astype(np.float64)))
+    assert ops.mel_filters(80).shape == (80, 201)
+    assert sys.modules["whisper_at_tpu_torch.transcribe"].cli is wat.cli.cli
+
+
+def _loads_nothing_of(code: str, banned) -> None:
+    full = (f"{code}; bad = [m for m in sys.modules if m.split('.')[0] in {tuple(banned)!r}]; "
+            "print(bad); sys.exit(1 if bad else 0)")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", full], capture_output=True, text=True,
+                          timeout=120, cwd=root)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_research_loads_no_jax_sklearn_matplotlib_or_transformers():
+    _loads_nothing_of(
+        "import sys, whisper_at_tpu_torch.research, whisper_at_tpu_torch.research.wer, "
+        "whisper_at_tpu_torch.research.noisy_speech, whisper_at_tpu_torch.research.as_eval, "
+        "whisper_at_tpu_torch.research.layer_probe, whisper_at_tpu_torch.research.plots, "
+        "whisper_at_tpu_torch.research.baselines",
+        ("jax", "jaxlib", "whisper_at_tpu", "sklearn", "matplotlib", "transformers"))
+
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT_SCRIPTS = ["app_torch.py"] + sorted(
+    os.path.join("examples", f) for f in os.listdir(os.path.join(_ROOT, "examples"))
+    if f.endswith("_torch.py"))
+
+
+@pytest.fixture(scope="module")
+def script_imports():
+    """{script: the banned modules that importing it loaded}, every port
+    example and the app imported in turn in one fresh interpreter."""
+    import json
+
+    code = ("import importlib.util, json, sys\n"
+            "banned = ('jax', 'jaxlib', 'whisper_at_tpu', 'gradio')\n"
+            "out = {}\n"
+            f"for path in {PORT_SCRIPTS!r}:\n"
+            "    spec = importlib.util.spec_from_file_location('example', path)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+            "    out[path] = sorted(m for m in sys.modules if m.split('.')[0] in banned)\n"
+            "print(json.dumps(out))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120, cwd=_ROOT)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    return json.loads(proc.stdout.splitlines()[-1])
+
+
+@pytest.mark.parametrize("path", PORT_SCRIPTS)
+def test_examples_and_app_load_no_jax(script_imports, path):
+    """Importing each port example (and the app) loads no JAX and nothing
+    of the JAX package (gradio only in the app's main)."""
+    assert script_imports[path] == []
+
+
+def test_layer_wise_probe_defaults_to_the_card(monkeypatch):
+    from whisper_at_tpu_torch.research import layer_probe
+
+    feats = np.random.default_rng(0).standard_normal((10, 2, 4))
+    labels = np.arange(10) % 2
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        layer_probe.layer_wise_probe(feats, labels)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        layer_probe.fit_linear_probe(feats, labels)
+    got = layer_probe.layer_wise_probe(feats, labels, max_iter=5, device="cpu")
+    assert [r["layer"] for r in got] == [0, 1]

@@ -26,7 +26,7 @@ from .audio import (
 )
 from .decoding import DecodingOptions, DecodingResult, decode, detect_language
 from .models.dims import ModelDimensions, dims_for
-from .checkpoint import load_params
+from .checkpoint import load_params, rename_head_state_dict
 from .convert import from_jax_params
 from .models.whisper import Whisper, build_model
 from .registry import _ALIGNMENT_HEADS, _MODELS, _MODELS_AT, file_name, sha256_of
@@ -133,9 +133,9 @@ def load_model(name: str, device="cuda", download_root: Optional[str] = None,
         ckpt = _torch_load(name, in_memory)
     state = dict(ckpt["model_state_dict"])
     if at_checkpoint is not None:
-        for key, value in _torch_load(at_checkpoint, in_memory).items():
-            key = key[len("module."):] if key.startswith("module.") else key
-            state[key if key.startswith("at_model.") else "at_model." + key] = value
+        head = rename_head_state_dict(_torch_load(at_checkpoint, in_memory))
+        state.update({k if k.startswith("at_model.") else "at_model." + k: v
+                      for k, v in head.items()})
     model = build_model("", device=dev, dtype=dtype, at_low_compute=at_low_compute,
                         dims=ModelDimensions(**ckpt["dims"]))
     if not any(k.startswith("at_model.") for k in state):

@@ -33,11 +33,11 @@ from .ops.mel import (  # noqa: F401  (re-exported constants)
     mel_filters,
     prefetch_stft_input,
 )
-from .utils import resolve_device
+from .utils import exact_div, resolve_device
 
 N_SAMPLES_PER_TOKEN = HOP_LENGTH * 2  # the encoder's stem has stride 2
-FRAMES_PER_SECOND = SAMPLE_RATE // HOP_LENGTH  # 10 ms per mel frame
-TOKENS_PER_SECOND = SAMPLE_RATE // N_SAMPLES_PER_TOKEN  # 20 ms per encoder position
+FRAMES_PER_SECOND = exact_div(SAMPLE_RATE, HOP_LENGTH)  # 10 ms per mel frame
+TOKENS_PER_SECOND = exact_div(SAMPLE_RATE, N_SAMPLES_PER_TOKEN)  # 20 ms per encoder position
 
 
 def _resample(x: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:

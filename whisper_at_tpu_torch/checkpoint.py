@@ -6,7 +6,9 @@ nested dict under its "/"-joined path, and, with `dims`, every model
 dimension under `__dims__/<name>`. The trees are those of the JAX package
 (linear weights [in, out], layer norms as `scale` / `bias`), so a file
 written by either package loads in the other; `convert.py` maps the trees
-onto the port's modules. numpy only.
+onto the port's modules. numpy only. `rename_head_state_dict` maps a
+trained head's `module.*` keys onto the reference's `at_model.*`, as the
+JAX package's does; `load_model` merges head files through it.
 """
 
 from typing import Dict, Optional, Tuple
@@ -60,3 +62,10 @@ def load_params(path: str, dtype=None) -> Tuple[Optional[ModelDimensions], dict]
                 flat[key] = data[key] if dtype is None else data[key].astype(dtype)
     dims = ModelDimensions(**dims_kwargs) if dims_kwargs else None
     return dims, _unflatten(flat)
+
+
+def rename_head_state_dict(state_dict: Dict) -> Dict:
+    """Rename trained-head keys `module.*` -> `at_model.*` so they merge with
+    a Whisper checkpoint at load; other keys stay as they are."""
+    return {("at_model." + k[len("module."):] if k.startswith("module.") else k): v
+            for k, v in state_dict.items()}

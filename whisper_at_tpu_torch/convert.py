@@ -75,6 +75,18 @@ def from_jax_params(tree: dict) -> Dict[str, torch.Tensor]:
     _stack(out, "decoder.blocks", dec["blocks"])
     _ln(out, "decoder.ln", dec["ln"])
 
+    out = {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
+    out.update(at_head_state_dict(head))
+    return out
+
+
+def at_head_state_dict(head: dict) -> Dict[str, torch.Tensor]:
+    """The `at_model.*` entries of the state dict from a JAX-layout TL-TR
+    head tree: the model's own, or one the training stack fitted in the
+    model's architecture (`lw_tr_1_8` for `tl_tr_1_8`, `lw_down_tr_512_1_8`
+    for the low-compute `tl_down_tr_512_1_8`) over 527 classes, such as
+    `train.wa_model`'s average."""
+    out = {}
     _block(out, "at_model.time_tr", head["time_tr"])
     _block(out, "at_model.layer_tr", head["layer_tr"])
     _ln(out, "at_model.mlp_layer.0", head["mlp_ln"])

@@ -41,6 +41,14 @@ class WordTiming:
     probability: float
 
 
+def dtw(x) -> np.ndarray:
+    """The path [2, path_len] (text indices, time indices) through one cost
+    matrix [N, M] (the JAX package's `timing.dtw`): K6 for a CUDA tensor,
+    its plain version otherwise, the costs summed in float64."""
+    x = torch.as_tensor(x, dtype=torch.float32)
+    return dtw_paths(x[None], [x.shape[0]])[0]
+
+
 def _align_dtype(model) -> torch.dtype:
     """The alignment forward's compute dtype: the model's own (bf16 weights
     compute in bf16, fp32 weights in fp32). The weight chain is fp32 either

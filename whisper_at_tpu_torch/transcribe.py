@@ -614,3 +614,6 @@ def transcribe_many(
            for f, (tokens, segments) in zip(files, assembled)]
     prof.add("emit", time.perf_counter() - t0)
     return out
+
+
+from .cli import cli  # noqa: E402,F401  (re-exported as the JAX package does)

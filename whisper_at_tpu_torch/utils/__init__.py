@@ -1,6 +1,7 @@
 """Small host-side helpers: integer division, zlib compression ratio,
 timestamp formatting, console-safe strings and the command line's argument
-types. The output writers are in `utils.writers`."""
+types, and the output writers of `utils.writers`, re-exported here as the
+JAX package's `utils` (and upstream Whisper's `whisper.utils`) does."""
 
 import sys
 import zlib
@@ -66,3 +67,14 @@ def resolve_device(device="cuda"):
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "to run on the CPU")
     return dev
+
+
+from .writers import (  # noqa: E402  (the writers import format_timestamp above)
+    ResultWriter,
+    WriteJSON,
+    WriteSRT,
+    WriteTSV,
+    WriteTXT,
+    WriteVTT,
+    get_writer,
+)
