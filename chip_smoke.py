@@ -110,6 +110,17 @@ before and read just after, and checks its output:
     undone after), so that each decode of its ladder ends after its first
     timestamp, as a trained decoder ends a window with nothing to say (the
     cut is printed);
+(17) the tools (`tools_check`): (a) tools/validate_real_checkpoint_torch.py's
+    stages over the model written as a .pt and a 30 s WAV (`validation_check`:
+    the bf16 activations within 2^-5 of the fp32 oracle's largest magnitude,
+    K3's tokens equal to its plain version's, int8 / int4 windows off bf16
+    printed with their decision margins, a random tiny draft token for token,
+    goldens read back; K1-K4 and the int4 entries counted); (b) the five
+    profilers (`profilers_check`: pipeline, decode, service, serving,
+    streaming) at cuts of count, each with its device idle share; (a) and
+    (b) with their kernel inputs recorded and held against the plain
+    versions; (c) what encoding a 224-token prompt costs the Python BPE
+    merge, alone and as a share of a sequential transcribe (`bpe_check`);
 (9) the streaming probe: `tools/probe_dma_torch.py`'s `probe` at the JAX
     probe's defaults (512 MiB int8 in 1 MiB chunks, the same numpy draw):
     P1 and P2 (cp.async and TMA rings at depths 2, 4, 8), each bitwise
@@ -3130,11 +3141,11 @@ EOT_BIAS = 10.0
 EOT_ROW = 5.0
 
 
-def example_module(name: str):
-    """examples/<name>.py of this checkout as a module."""
+def checkout_module(folder: str, name: str):
+    """<folder>/<name>.py of this checkout (examples/, tools/) as a module."""
     import importlib.util
 
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", name + ".py")
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), folder, name + ".py")
     spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
@@ -3199,7 +3210,7 @@ def layer_probe_check(card: str, model, root: str) -> dict:
     from whisper_at_tpu_torch.research import feature_extract as fx
     from whisper_at_tpu_torch.research import layer_probe
 
-    paths, labels, folds = example_module("esc50_probe_torch").make_clips(
+    paths, labels, folds = checkout_module("examples", "esc50_probe_torch").make_clips(
         os.path.join(root, "esc50"), n=PROBE_CLIPS)
     n_layer = model.dims.n_audio_layer
 
@@ -3275,7 +3286,8 @@ def noise_check(card: str, model, root: str) -> dict:
     to 224 tokens at ~70 ms a step on random weights."""
     from whisper_at_tpu_torch.research import noisy_speech, wer
 
-    speech, noise_by_class, truth_dir = example_module("noise_robustness_torch").make_corpus(
+    noise_example = checkout_module("examples", "noise_robustness_torch")
+    speech, noise_by_class, truth_dir = noise_example.make_corpus(
         os.path.join(root, "noise"), n_utts=NOISE_UTTS)
     mixed_dir, text_dir = os.path.join(root, "noise", "mixed"), os.path.join(root, "noise", "hyp")
     mixed = noisy_speech.generate_noisy_set(speech, noise_by_class, mixed_dir,
@@ -3386,6 +3398,279 @@ def research_check(card: str, model) -> dict:
     return out
 
 
+# ---- (17) the tools: validation, profilers, the BPE merge's cost ---------- #
+# tools/validate_real_checkpoint_torch.py's stages over the random large-v1
+# written as a .pt and a 30 s WAV; the five profilers at cuts of count (never
+# width); what encoding a prompt costs the tokenizer's Python BPE merge
+VALIDATE_S = 30
+# stages 4 and 5 decode at T = 0, VALIDATE_TOKENS tokens a window, gates off:
+# the random decoder never ends a window, and the temperature ladder would
+# sample 224 tokens at each of six rungs
+VALIDATE_TOKENS = TOKENS // 2
+VALIDATE_OPTS = dict(temperature=0.0, sample_len=VALIDATE_TOKENS,
+                     compression_ratio_threshold=None, logprob_threshold=None,
+                     no_speech_threshold=None)
+# stage 5's failures that a random model may give (int8 / int4 tokens off
+# bf16's at near-tied logits): printed with their margins, not failed on
+QUANT_NOISE = {"quant:tokens", "quant:raw-only", "quant:int4", "quant:int4-raw"}
+# the profilers' arguments in this phase: the JAX tools' flags, counts cut
+PROFILER_ARGS = {
+    "profile_pipeline_torch": ["--batch", "8", "--tokens", "12", "--iters", "1"],
+    "profile_decode_torch": ["--batch", "8", "--steps", "24", "--iters", "1"],
+    "profile_service_torch": ["--batch", "4", "--tokens", "12", "--iters", "1"],
+    "profile_serving_torch": ["--batch", "4", "--tokens", "12", "--iters", "1"],
+    "profile_streaming_torch": ["--streams", "2", "--minutes", "1", "--sample-len", "12",
+                                "--host-prof"],
+}
+PROFILER_CUTS = {
+    "profile_pipeline_torch": "8 windows (of 24), 12 tokens a window (of 96), best of 1 (of 3)",
+    "profile_decode_torch": "24 steps (of 96), best of 1 (of 3)",
+    "profile_service_torch": "fleets of 12 files at max_batch 4 (of 72 at 24), 12 tokens a "
+                             "window (of 96), 1 fleet a path (of 2)",
+    "profile_serving_torch": "12 files at max_batch 4 (of 72 at 24), 12 tokens a window "
+                             "(of 96), 1 iteration (of 3)",
+    "profile_streaming_torch": "2 streams of 1 min (the service path; the tool's default is "
+                               "1 stream of 3 min), 12 tokens a window (of 96)",
+}
+PROFILER_KERNELS = {"profile_decode_torch": ("K3", "K4")}
+# the tokenizer corpus of tests/test_torch_rules.py (ASCII, accents, CJK,
+# numerals, punctuation runs, whitespace, Unicode spaces, contractions)
+BPE_CORPUS = [
+    "Hello, world! It's a test; we'll see.",
+    "Café déjà vu, naïve façade — Ærø, São Paulo",
+    "我们今天去公园。東京は晴れです。서울 날씨",
+    "In 1999 there were 3,141 cases (42%) and ½ of ٣٤",
+    "?!... -- ((x)) [[y]] {z} ♪♪ \"quoted\" 'single'",
+    "  leading\n\n\ttabs   and    spaces  \n trailing  ",
+    "mixed\xa0nbsp　ideographic thin line",
+    "'S 'LL don't I'm they've 're",
+]
+BPE_PROMPT_TOKENS = 224
+BPE_TEXT = ("The committee met on Thursday to review the quarterly results, and the "
+            "chairwoman noted that revenue from the northern region had grown faster than "
+            "anyone expected, although shipping delays in the autumn cost the company several "
+            "important contracts. ")
+
+
+def quant_margins(model, audio, ref_tokens: list, variants: dict) -> dict:
+    """{variant: [(window, first differing token, the bf16 decode's decision
+    margin there)]} for each window whose tokens differ from `ref_tokens`,
+    the margin from the bf16 call teacher-forced on its own tokens."""
+    from whisper_at_tpu_torch.audio import N_SAMPLES, log_mel_spectrogram
+    from whisper_at_tpu_torch.transcribe import _mel_to_windows
+
+    out = {name: [] for name in variants}
+    firsts = {}
+    for name, tokens in variants.items():
+        for w, (ref, got) in enumerate(zip(ref_tokens, tokens)):
+            if ref != got:
+                firsts[(name, w)] = next((i for i, (x, y) in enumerate(zip(ref, got))
+                                          if x != y), min(len(ref), len(got)))
+    if not firsts:
+        return out
+    windows, _ = _mel_to_windows(log_mel_spectrogram(audio, padding=N_SAMPLES,
+                                                     device=model.device))
+    opts = dict(VALIDATE_OPTS, language="en", fp16=True, kv_quant=False, weight_quant=False)
+    steps = min(map(len, ref_tokens))
+    _, gaps = teacher_forced(model, windows, ref_tokens, opts, steps)
+    for (name, w), first in sorted(firsts.items()):
+        gap = float(gaps[w, first]) if first < steps else float("inf")
+        out[name].append((w, first, round(gap, 5)))
+    return out
+
+
+def validation_check(card: str, model) -> dict:
+    """(17a) tools/validate_real_checkpoint_torch.py's stages, each counted,
+    over the model written as a reference .pt (as (13) writes it) and a 30 s
+    WAV: 1 load; 2 the card's bf16 path against the fp32 oracle on the CPU,
+    held within 2^-5 of the oracle's largest magnitude (the mesh phase's
+    bf16 bound; --atol printed beside); 3 the sequential transcribe under
+    the EOT preference (cut: the ladder climbs, each decode 2 tokens); 4
+    transcribe_batched on the plain cross K/V and 5 the int8, K3-plain and
+    int4 calls, at T = 0 and 48 tokens with the gates off (cut), K3's tokens
+    equal to its plain version's, int8 / int4 windows off bf16 printed with
+    their margins; 5b pointed at an empty directory of this run, so skipped
+    (no reference package on the card's machine); 5c a random tiny draft
+    under the EOT preference, token for token; 6 goldens written and read
+    back. The kernel inputs of stages 2-5c are recorded and held against the
+    plain versions after. Returns the launch counts of stage 5."""
+    import tempfile
+
+    import whisper_at_tpu_torch as wat
+    from whisper_at_tpu_torch.audio import load_audio
+
+    vrc = checkout_module("tools", "validate_real_checkpoint_torch")
+    failures = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_validate_") as root, \
+            Recorder() as rec:
+        t0 = time.perf_counter()
+        ckpt = os.path.join(root, "large-v1-random.pt")
+        torch.save({"dims": vars(model.dims), "model_state_dict": model.state_dict()}, ckpt)
+        wav = os.path.join(root, "clip.wav")
+        with open(wav, "wb") as f:
+            f.write(wav_body(synth_audio(VALIDATE_S, SEED + 70)))
+        save_s = time.perf_counter() - t0
+        ckpt_gib = os.path.getsize(ckpt) / 2**30
+
+        (failed, (loaded, name)), load_s, _ = run_counted(
+            lambda: vrc.load_stage(None, ckpt, None, None, False, "cuda"), ())
+        failures += failed
+        audio = load_audio(wav)
+        (failed, diffs), act_s, act_counts = run_counted(
+            lambda: vrc.activations_stage(loaded, audio, True, 2e-2, rel=MESH_ENC_REL),
+            ("K1", "K2"), ("K3", "K4"))
+        failures += failed
+        with eot_preference(loaded), decodes_seen() as decodes:
+            (failed, seq), seq_s, seq_counts = run_counted(
+                lambda: vrc.sequential_stage(loaded, audio, True, "en", None),
+                ("K1", "K2"), ("K3", "K4"))
+        failures += failed
+        (failed, batched), batch_s, batch_counts = run_counted(
+            lambda: vrc.batched_stage(loaded, audio, True, "en", None, **VALIDATE_OPTS),
+            ("K1", "K2"), ("K3", "K4"))
+        failures += failed
+        (quant_failed, quant), quant_s, quant_counts = run_counted(
+            lambda: vrc.quant_stage(loaded, audio, True, "en", batched["text"],
+                                    **VALIDATE_OPTS),
+            HEADLINE_KERNELS + ("K3-int4", "K4-int4"))
+        failures += [f for f in quant_failed if f not in QUANT_NOISE]
+        toks = quant["tokens"]
+        if toks["int8-plain"] != toks["int8"]:
+            raise AssertionError("stage 5: K3's tokens differ from its plain version's")
+        margins = quant_margins(loaded, audio, batched["window_tokens"],
+                                {"int8": toks["int8"], "int4": toks["int4"]})
+        # 5b points inside this run's own directory, where no package is
+        if vrc.reference_stage(loaded, audio, "en",
+                               os.path.join(root, "reference")) is not None:
+            raise AssertionError("stage 5b ran without a reference package")
+        draft = wat.build_model("tiny", device="cuda", dtype=torch.bfloat16, seed=SEED + 1)
+        with eot_preference(loaded):
+            (failed, spec), spec_s, _ = run_counted(
+                lambda: vrc.draft_stage(loaded, draft, audio, True, "en", "random tiny",
+                                        **VALIDATE_OPTS), ("K1", "K2"))
+        failures += failed
+        if not spec.get("rounds"):
+            raise AssertionError(f"stage 5c: the speculative loop ran no round: {spec}")
+        goldens = os.path.join(root, "goldens.npz")
+        failures += vrc.goldens_stage(goldens, name, batched)
+        got = np.load(goldens, allow_pickle=True)
+        want = dict(model=(name, "<U"), text=(batched["text"], "<U"),
+                    language=(batched["language"], "<U"))
+        for key, (value, kind) in want.items():
+            if str(got[key]) != value or not got[key].dtype.str.startswith(kind):
+                raise AssertionError(f"goldens {key}: {got[key]!r}")
+        if (got["segment_starts"].dtype != np.float64 or got["segment_texts"].dtype != object
+                or list(got["segment_texts"]) != [s["text"] for s in batched["segments"]]
+                or not np.array_equal(got["audio_tag"], np.asarray(batched["audio_tag"]))):
+            raise AssertionError("goldens: segments or tags not read back as written")
+        del loaded, draft
+    if failures:
+        raise AssertionError(f"validation stages failed: {failures}")
+    hold_path_inputs(card, "validation tool", rec.inputs)
+    del rec
+    torch.cuda.empty_cache()
+    k = dict(zip(("K1", "K2", "K3", "K4", "K3-int4", "K4-int4"), kernels_of(
+        ("K1", "K2", "K3", "K4", "K3-int4", "K4-int4"))))
+    print(f"validation tool {SIZE}: the model as a {ckpt_gib:.2f} GiB .pt and a {VALIDATE_S} s "
+          f"WAV written in {save_s:.1f} s; stage 1 load {load_s:.3f} s; 2 activations "
+          f"{act_s:.3f} s, bf16 on the card against the fp32 oracle: "
+          + ", ".join(f"{key} max|d| {e:.4g} (bound 2^-5 x {s:.4g} = {MESH_ENC_REL * s:.4g}; "
+                      f"--atol 0.02)" for key, (e, s) in diffs.items())
+          + f"; 3 sequential {seq_s:.3f} s, CUT: under the EOT preference, {len(decodes)} "
+          f"decodes at temperatures {sorted({t for t, _ in decodes})}; 4 batched {batch_s:.3f} s "
+          f"and 5 quant {quant_s:.3f} s, CUT: T = 0, {VALIDATE_TOKENS} tokens a window, gates "
+          f"off; K3's tokens equal to its plain version's; windows off bf16: int8 "
+          f"{margins['int8']}, int4 {margins['int4']} (window, first token, bf16 margin); "
+          f"stage 5 failures printed not failed {quant_failed}; 5b skipped (no reference "
+          f"package in this run's directory); 5c random tiny draft {spec_s:.3f} s under the "
+          f"EOT preference (cut), {spec['rounds']} rounds, {spec['tokens_per_round']:.2f} tokens a "
+          f"round, tokens equal to greedy's; goldens read back; launches: stage 2 K1 "
+          f"{act_counts[k['K1']]} K2 {act_counts[k['K2']]}, stage 3 K1 {seq_counts[k['K1']]}, "
+          f"stage 4 K1 {batch_counts[k['K1']]}, stage 5 K3 {quant_counts[k['K3']]} K4 "
+          f"{quant_counts[k['K4']]} K3-int4 {quant_counts[k['K3-int4']]} K4-int4 "
+          f"{quant_counts[k['K4-int4']]} [{card}]", flush=True)
+    return quant_counts
+
+
+def profilers_check(card: str, model) -> dict:
+    """(17b) The five profilers' `run` on the model, each counted (K1-K4;
+    the decode profiler K3 and K4), at the cuts of PROFILER_ARGS (printed),
+    with its kernel inputs recorded (the recorder's shape key on every
+    kernel call is inside the tools' timings) and held against the plain
+    versions after. Returns {tool: what its run returned}."""
+    out = {}
+    for name, argv in PROFILER_ARGS.items():
+        tool = checkout_module("tools", name)
+        print(f"profiler {name} {SIZE}, CUT: {PROFILER_CUTS[name]} [{card}]", flush=True)
+        args = tool.parse_args(argv)
+        with Recorder() as rec:
+            result, seconds, counts = run_counted(lambda: tool.run(model, True, args),
+                                                  PROFILER_KERNELS.get(name, HEADLINE_KERNELS))
+        hold_path_inputs(card, f"profiler {name}", rec.inputs)
+        del rec
+        idle = result.get("idle_share")
+        if idle is None or not 0 <= idle < 1:
+            raise AssertionError(f"{name}: no device idle share ({idle})")
+        launched = {k: counts[n] for k, n in zip(HEADLINE_KERNELS, kernels_of(HEADLINE_KERNELS))}
+        print(f"profiler {name}: {seconds:.1f} s, device idle share {idle:.4f} of one profiled "
+              f"call, launches {launched} [{card}]", flush=True)
+        out[name] = result
+    return out
+
+
+def bpe_check(card: str, model) -> dict:
+    """(17c) What prompt encoding costs, the measurement that decides whether
+    the tokenizer's merge needs a compiled engine: the Python merge's seconds
+    to encode BPE_PROMPT_TOKENS tokens of prompt text from a cold memo (and
+    BPE_CORPUS joined: other scripts, digits, symbols), and the share of a
+    sequential transcribe (30 s, the prompt as its initial_prompt, under
+    the EOT preference) that the encoding costs."""
+    import whisper_at_tpu_torch as wat
+    from whisper_at_tpu_torch import bpe
+    from whisper_at_tpu_torch.tokenizer import get_encoding
+
+    base = get_encoding("multilingual")
+
+    def fresh():
+        """A new encoding on the same ranks, its memo empty."""
+        return bpe.Encoding(base.name, base._ranks, base._special)
+
+    prompt = base.decode(base.encode(BPE_TEXT * 8)[:BPE_PROMPT_TOKENS]).strip()
+    secs, corpus = {}, " ".join(BPE_CORPUS)
+    for label, text in (("prompt", " " + prompt), ("corpus", corpus)):
+        secs[label] = min(seconds_of(functools.partial(e.encode, text))
+                          for e in [fresh() for _ in range(5)])
+    n_prompt, n_corpus = len(base.encode(" " + prompt)), len(base.encode(corpus))
+    audio = synth_audio(VALIDATE_S, SEED + 71)
+    with eot_preference(model):
+        _, call_s, _ = run_counted(lambda: wat.transcribe(
+            model, audio, language="en", initial_prompt=prompt, verbose=None,
+            temperature=0.0), ("K1", "K2"))
+    print(f"BPE (the Python merge): a {n_prompt}-token prompt (--initial_prompt) encoded from "
+          f"a cold memo in {secs['prompt'] * 1e3:.3f} ms, the corpus joined ({n_corpus} "
+          f"tokens) in {secs['corpus'] * 1e3:.3f} ms; a sequential transcribe of {VALIDATE_S} s "
+          f"with that prompt (EOT preference, cut) {call_s:.3f} s, of which prompt encoding "
+          f"{secs['prompt'] / call_s:.2e}: the most a compiled merge could save [{card}]",
+          flush=True)
+    return dict(secs, call_s=call_s)
+
+
+def seconds_of(fn) -> float:
+    """Host seconds of one call of fn()."""
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+def tools_check(card: str, model) -> dict:
+    """(17) The validation tool, the five profilers and the BPE merge's cost."""
+    t0 = time.perf_counter()
+    out = dict(validation=validation_check(card, model), profilers=profilers_check(card, model),
+               bpe=bpe_check(card, model))
+    print(f"tools phase (17): {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card",
@@ -3414,7 +3699,12 @@ def main() -> int:
                 if "registers" in ln or "spill" in ln]
         print(f"ptxas {kernel.name}: {' | '.join(regs)}", flush=True)
 
+    def mark(label: str) -> None:
+        print(f"chip_smoke: {label} done at {time.perf_counter() - t_start:.1f} s [{card}]",
+              flush=True)
+
     rows, k9_launches = kernel_checks(card)
+    mark("(2) the kernel checks")
     import whisper_at_tpu_torch as wat
 
     model = wat.build_model(SIZE, device="cuda", dtype=torch.bfloat16, seed=SEED)
@@ -3428,18 +3718,30 @@ def main() -> int:
     print(f"throughput in this process: headline {rate:.2f}, int4 {int4_rate:.2f}, "
           f"beam {BEAM} {beam_rate:.2f}, switches (a) {a_rate:.2f}, switches (b) "
           f"{b_rate:.2f} audio-s/s [{card}]", flush=True)
+    mark("(3)-(5), (8) the headline, int4, beam and switches calls")
     words_counts, words_k6 = words_check(card, model)
     # K6's numbers in the kernels line come from the words call's own inputs
     words_k6["err"] = max(words_k6["err"], rows["K6"]["err"])
     rows["K6"].update(words_k6)
+    mark("(6) the words call")
     sequential_check(card, model)
+    mark("(7) the sequential call")
     serving_check(card, model, rate)
+    mark("(10) serving")
     streaming_check(card, model, rate)
+    mark("(11) streaming")
     training_check(card, model)
+    mark("(12) training")
     cli_check(card, model)
+    mark("(13) the command line")
     spec_check(card, model)
+    mark("(14) speculative decoding")
     mesh_counts = mesh_check(card, model)
+    mark("(15) the mesh")
     research_check(card, model)
+    mark("(16) the research paths")
+    tools_check(card, model)
+    mark("(17) the tools")
     probe_rows, probe_counts = probe_check(card)
     rows.update(probe_rows)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to here [{card}]",

@@ -24,6 +24,18 @@ import whisper_at_tpu_torch as wat
 from whisper_at_tpu_torch import decoding
 from whisper_at_tpu_torch.convert import from_jax_params
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These models are tiny: the port's passes run on one thread, which
+    keeps the file's time steady when other test processes share the
+    cores (a thread pool per process oversubscribes them)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 DIMS = dict(n_mels=80, n_audio_ctx=1500, n_audio_state=128, n_audio_head=2,
             n_audio_layer=2, n_vocab=51865, n_text_ctx=448, n_text_head=2,
             n_text_state=128, n_text_layer=2)

@@ -34,6 +34,18 @@ from whisper_at_tpu_torch.ops.cross_decode import cross_attention_int4, pad_bias
 from whisper_at_tpu_torch.ops.kv_quant import pad_ta, project_quantize_kv4, quantize_sym
 from whisper_at_tpu_torch.ops.w4_matmul import w4_matmul, w4_matmul_plain
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These models are tiny: the port's passes run on one thread, which
+    keeps the file's time steady when other test processes share the
+    cores (a thread pool per process oversubscribes them)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 DIMS = dict(n_mels=80, n_audio_ctx=1500, n_audio_state=128, n_audio_head=2,
             n_audio_layer=2, n_vocab=51865, n_text_ctx=448, n_text_head=2,
             n_text_state=128, n_text_layer=2)

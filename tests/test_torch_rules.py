@@ -702,6 +702,42 @@ def test_examples_and_app_load_no_jax(script_imports, path):
     assert script_imports[path] == []
 
 
+NEW_TOOLS = ["validate_real_checkpoint_torch.py", "profile_pipeline_torch.py",
+             "profile_decode_torch.py", "profile_service_torch.py", "profile_serving_torch.py",
+             "profile_streaming_torch.py"]
+
+
+@pytest.fixture(scope="module")
+def tool_imports():
+    """{tool: the banned modules loaded once it was imported}, the
+    validation tool and the profilers imported in turn in one fresh
+    interpreter, each with its `run` path's package modules."""
+    import json
+
+    code = ("import importlib.util, json, sys\n"
+            "sys.path.insert(0, '.')\n"
+            "import whisper_at_tpu_torch.tokenizer\n"
+            "banned = ('jax', 'jaxlib', 'whisper_at_tpu')\n"
+            "out = {}\n"
+            f"for name in {NEW_TOOLS!r}:\n"
+            "    spec = importlib.util.spec_from_file_location(name[:-3], 'tools/' + name)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+            "    out[name] = sorted(m for m in sys.modules if m.split('.')[0] in banned)\n"
+            "print(json.dumps(out))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120, cwd=_ROOT)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    return json.loads(proc.stdout.splitlines()[-1])
+
+
+@pytest.mark.parametrize("tool", NEW_TOOLS)
+def test_validation_tool_and_profilers_load_no_jax(tool_imports, tool):
+    """The validation tool, the five profilers (with `chip_smoke.py` and
+    tools/profile_torch_headline.py, which they import) load neither JAX
+    nor the JAX package."""
+    assert tool_imports[tool] == []
+
+
 def test_layer_wise_probe_defaults_to_the_card(monkeypatch):
     from whisper_at_tpu_torch.research import layer_probe
 

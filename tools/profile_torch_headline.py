@@ -68,11 +68,17 @@ PORT_KERNELS = ("attn_kernel", "ln_rows", "BiasGelu", "BiasResidual", "KvQuantiz
                 "fused_mlp_gemm", "flash_decode", "dtw")
 
 
+def sync() -> None:
+    """Wait for the device's queued work (nothing to wait for on the CPU)."""
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
 def timed(fn):
-    torch.cuda.synchronize()
+    sync()
     t0 = time.perf_counter()
     out = fn()
-    torch.cuda.synchronize()
+    sync()
     return out, time.perf_counter() - t0
 
 
@@ -157,6 +163,56 @@ def time_stages(call, words: bool, label: str) -> dict:
     print(json.dumps({"options": label, "call_s": call_s, "stages": stages}), flush=True)
     return {"options": label, "peak_memory_bytes_stage_call": peak, "first_call_s": warm_s,
             "call_s": call_s, "stages": stages}
+
+
+def device_busy(call, host_activity: bool = False) -> dict:
+    """One call of call() under torch.profiler, recording device activity
+    only, or with `host_activity` host activity too, as `profile_call`
+    records it for the headline (which lengthens the profiled call):
+    {"profiled_call_s", the device's "busy_s" (the union of its kernels'
+    intervals), "idle_share" of the call, "kernels": (name, start us, end
+    us) of each}. The profiler's raw records are read, not its Python event
+    tree, whose building took tens of seconds over the ~3e5 launches of a
+    serving burst; both hold the same kernel intervals. Without a device (a
+    CPU run) nothing is called: busy_s 0, idle_share None."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    if not torch.cuda.is_initialized():
+        return {"profiled_call_s": None, "busy_s": 0.0, "idle_share": None, "kernels": []}
+    activities = [ProfilerActivity.CPU] * host_activity + [ProfilerActivity.CUDA]
+    with torch_profile(activities=activities) as prof:
+        _, prof_s = timed(call)
+    cuda_type = torch.autograd.DeviceType.CUDA
+    kernels = [(e.name(), e.start_ns() * 1e-3, (e.start_ns() + e.duration_ns()) * 1e-3)
+               for e in prof.profiler.kineto_results.events() if e.device_type() == cuda_type]
+    busy = busy_seconds([(start, end) for _, start, end in kernels])
+    return {"profiled_call_s": prof_s, "busy_s": busy, "idle_share": 1 - busy / prof_s,
+            "kernels": kernels}
+
+
+def idle_line(busy: dict) -> str:
+    """The device's busy time and idle share of one profiled call, or that
+    the run had no device."""
+    if busy["idle_share"] is None:
+        return "device: none (a CPU run: no device time to profile)"
+    return (f"device busy {busy['busy_s']:.4f} s of a {busy['profiled_call_s']:.4f} s profiled "
+            f"call: idle share {busy['idle_share']:.4f}, {len(busy['kernels'])} kernel launches")
+
+
+def tool_model(size: str, cpu: bool):
+    """The profilers' model: `size` with random weights from chip_smoke's
+    seed, bf16 on the card, or fp32 on the CPU with --cpu. Returns (model,
+    fp16)."""
+    import whisper_at_tpu_torch as wat
+
+    if cpu:
+        return wat.build_model(size, device="cpu", dtype=torch.float32, seed=SEED), False
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device (or --cpu)")
+    from whisper_at_tpu_torch.ops import cuda
+
+    cuda.build_all()
+    return wat.build_model(size, device="cuda", dtype=torch.bfloat16, seed=SEED), True
 
 
 def profile_call(call, audio_s: float, card: str, timing: dict) -> dict:
